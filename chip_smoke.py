@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the Sim_Track obstacle-avoidance fleet on a
-static grid, N = 30, S = 8, K = 128, the production solver budget — through
-its public entry points, in phases:
+Drives the port's paths — the Sim_Track obstacle-avoidance fleet on a
+static and on a dynamic grid, per-lane weight sweeps, the escalation pass
+and Real_Track; N = 30, S = 8, K = 128, the production solver budget —
+through their public entry points, in phases:
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
-2. build: compiles both CUDA kernels from ``multi_purpose_mpc_tpu_torch/csrc``;
+2. build: compiles the four CUDA kernels from
+   ``multi_purpose_mpc_tpu_torch/csrc``, one nvcc per source, in parallel;
 3. K2 (corridor selection) vs its plain twin on the horizon blocks of 4096
    feasible starts: bitwise, or fail above 1e-6;
 4. K1 (fused QP assembly + ADMM + floor) vs its plain twin on 4096 lanes'
@@ -18,7 +20,25 @@ its public entry points, in phases:
 5. main path: ``simulate_fleet`` at B = 4096 for 50 steps; every kernel's
    launch count equals the step count; bench.py's fleet-health gates;
 6. single car: ``simulate_closed_loop`` completes the lap within 250 steps
-   with accept rate >= 0.9.
+   with accept rate >= 0.9;
+7. K4 (scanline extraction) vs its plain version, bitwise: the (4096, 30,
+   128) horizon samples of the feasible starts on the shared grid, and a
+   (256, 500, 500) per-lane grid stack with extra random disks;
+8. K3 (ADMM on pre-assembled QPs) vs its plain version on 4096
+   sweep-weighted QPs (first QP of the raw draw, and after 10 sweep
+   steps), at K1's bars;
+9. dynamic grid: ``simulate_fleet(static_grid=False)`` at B = 4096 for 50
+   steps on the unchanged grid: K4 = K2 = K1 = 50 launches, K3 = 0, the
+   log (x, y, v, ok, floor) bitwise equal to phase 5's, health gates;
+10. sweep on the dynamic grid, B = 4096 x 50 steps, lanes tiling the
+    reference, strictly convex and time-optimal weight rows: K4 = K2 = K3
+    = 50, K1 = 0; accept per row; health gates (0 failed lanes included)
+    over the reference lanes, at most 1 % failed lanes in the other rows;
+11. escalation: static grid, B = 4096, ``escalate_lanes=128``, 20 steps:
+    accept rate >= phase 5's over the same steps, and no lane accepted at
+    step 0 without escalation is rejected with it;
+12. Real_Track: B = 1024 x 30 steps from bench.py's starts: 0 failed
+    lanes, solver-failure < 2 %.
 
 Prints a JSON line with each kernel's launches, error and times, the card's
 name and power limit, and as its last line
@@ -26,6 +46,7 @@ name and power limit, and as its last line
 Any failure raises (non-zero exit, no result line).  Imports no JAX.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,6 +68,21 @@ K1_STATUS_AGREE = 0.995
 K1_RPRIM_TOL = 1e-4
 K1_U0_TOL = 3e-3
 K1_FLOOR_TOL = 1e-6
+# phase 7-12 sizes
+K4_LANE_GRIDS = 256
+ESC_LANES = 128
+ESC_STEPS = 20
+RT_BATCH = 1024
+RT_STEPS = 30
+# weight rows of phase 10 (Q | R | QN): reference tracking and strictly
+# convex (tests/test_sweep.py), time-optimal (config.time_optimal_config)
+SWEEP_ROWS = ("reference", "strictly_convex", "time_optimal")
+# The reference row must lose no lane (bench.py's gate).  The other rows
+# may lose a few at pinch points: at this seed the JAX package fails the
+# same strictly convex lanes (their first QP ends just above feas_tol at
+# the production budget, the replayed plan leaves the corridor), so the
+# bar is a share of the row's lanes.
+SWEEP_FAILED_MAX = 0.01
 
 
 def gpu_line() -> str:
@@ -70,6 +106,62 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def lane_grids(grid, path, lanes: int, seed: int):
+    """A (lanes, H, W) stack of the grid, each lane with 4 extra random
+    disks (radius 1-4 cm) near random waypoints, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    wp = rng.integers(0, path.n_wp, (lanes, 4))
+    off = rng.uniform(-0.08, 0.08, (lanes, 4, 2))
+    rad = rng.uniform(0.01, 0.04, (lanes, 4))
+    px, py = path.x.cpu().numpy()[wp], path.y.cpu().numpy()[wp]
+    dev = grid.occ.device
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)[:, None, None]
+    res, (ox, oy) = float(grid.resolution), grid.origin.tolist()
+    xs = (torch.arange(grid.width, device=dev) + 0.5) * res + ox
+    ys = (torch.arange(grid.height, device=dev) + 0.5) * res + oy
+    occ = grid.occ.expand(lanes, -1, -1).clone()
+    for d in range(4):
+        cx, cy = t(px[:, d] + off[:, d, 0]), t(py[:, d] + off[:, d, 1])
+        disk = ((xs[None, None, :] - cx) ** 2 + (ys[None, :, None] - cy) ** 2
+                <= t(rad[:, d]) ** 2)
+        occ[disk] = 0.0
+    return occ
+
+
+def health(log, final_state, path, model, steps, lanes=None):
+    """bench.py's fleet-health numbers over ``lanes`` (all when None)."""
+    if lanes is not None:
+        log = type(log)(*(f[:, lanes] for f in log))
+        final_state = dataclasses.replace(
+            final_state, failed=final_state.failed[lanes])
+    active = log.active
+    if not bool(torch.isfinite(log.x).all() and torch.isfinite(log.v).all()):
+        raise AssertionError("non-finite rollout")
+    rej = ~log.ok & active
+    n_act = max(int(active.sum()), 1)
+    return dict(
+        accept=float(log.ok[active].float().mean()),
+        infeas=float((rej & (log.floor > 0)).sum()) / n_act,
+        solver_fail=float((rej & (log.floor <= 0)).sum()) / n_act,
+        failed=int(final_state.failed.sum()),
+        progress=float((log.s[-1] - log.s[0]).mean()),
+        exp_progress=0.5 * float(path.v_ref.mean()) * steps * model.Ts,
+        max_ey=float(log.e_y[active].abs().max()))
+
+
+def check_health(h, label):
+    if h["failed"] != 0 or h["solver_fail"] >= 0.02 \
+            or h["progress"] <= h["exp_progress"] or h["max_ey"] >= 0.30:
+        raise AssertionError(f"{label}: fleet health gates failed: {h}")
+
+
+def fmt_health(h):
+    return (f"accept {h['accept']:.4f}, certified-infeasible "
+            f"{h['infeas']:.4f}, solver-failure {h['solver_fail']:.5f}, "
+            f"failed lanes {h['failed']}, mean progress {h['progress']:.3f} m "
+            f"(floor {h['exp_progress']:.3f}), max|e_y| {h['max_ey']:.4f}")
+
+
 def main():
     # ---- phase 1: device ----
     if not torch.cuda.is_available():
@@ -83,27 +175,47 @@ def main():
     print(f"[device] {kind}  torch {torch.__version__}  CUDA "
           f"{torch.version.cuda}  nvidia-smi: {card}", flush=True)
 
-    from multi_purpose_mpc_tpu_torch.config import SimConfig, sim_track_preset
+    from multi_purpose_mpc_tpu_torch.config import (
+        SimConfig, real_track_preset, sim_track_preset, time_optimal_config)
     from multi_purpose_mpc_tpu_torch.models.bicycle import init_car_state
-    from multi_purpose_mpc_tpu_torch.mpc import kappa_predictions, mpc_locate
-    from multi_purpose_mpc_tpu_torch.ops import admm_cuda, corridor_cuda
+    from multi_purpose_mpc_tpu_torch.mpc import (
+        WeightSet, kappa_predictions, mpc_locate, mpc_pre_solve)
+    from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
+                                                 corridor_extract)
     from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
         gather_horizon_block, solver_inputs_from_block)
+    from multi_purpose_mpc_tpu_torch.ops.ltv_qp import pack_qp
     from multi_purpose_mpc_tpu_torch.ops.path import build_reference_path
     from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
     from multi_purpose_mpc_tpu_torch.simulation import (
-        feasible_starts, init_fleet, simulate_closed_loop, simulate_fleet,
-        static_horizon_table)
+        _locate_horizon, feasible_starts, init_fleet, simulate_closed_loop,
+        simulate_fleet, static_horizon_table)
     from multi_purpose_mpc_tpu_torch.utils import kernels
     from multi_purpose_mpc_tpu_torch.utils.maps import (
         add_obstacles_host, load_grid_map)
 
     # ---- phase 2: build ----
-    for name in ("corridor_select", "admm_fused"):
-        t0 = time.perf_counter()
+    names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ")
+    t0 = time.perf_counter()
+    for name, sec in kernels.build_all(names).items():
         kernels.load(name)
         print(f"[build] {name}.cu -> {kernels.library_path(name)} in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+              f"{sec:.2f} s", flush=True)
+    print(f"[build] all four in {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    counted = {"admm_fused": admm_cuda.solve_mpc_qp_fused_cuda,
+               "corridor_select": corridor_cuda.corridor_select_cuda,
+               "admm_structured": admm_cuda.solve_ltv_qp_structured_cuda,
+               "extract_occ": corridor_extract.extract_occ_cuda}
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in counted.items()}
 
     # ---- scenario ----
     t0 = time.perf_counter()
@@ -194,43 +306,23 @@ def main():
           f"N={cfg.N} ({card})", flush=True)
 
     # ---- phase 5: main path ----
-    for fn in (admm_cuda.solve_mpc_qp_fused_cuda,
-               corridor_cuda.corridor_select_cuda):
-        fn.launches = 0
-    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     res = simulate_fleet(grid, path, cfg, model, SimConfig(max_steps=STEPS),
                          fleet, table=table)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"admm_fused": admm_cuda.solve_mpc_qp_fused_cuda.launches,
-                "corridor_select": corridor_cuda.corridor_select_cuda.launches}
+    launches = read_counts()
     print(f"[main] simulate_fleet B={B} x {STEPS} steps: launches {launches}",
           flush=True)
-    if any(n != STEPS for n in launches.values()):
-        raise AssertionError(f"main path launches {launches} != {STEPS} steps")
-    log = res.log
-    active = log.active
-    if not bool(torch.isfinite(log.x).all() and torch.isfinite(log.v).all()):
-        raise AssertionError("non-finite rollout")
-    accept = float(log.ok[active].float().mean())
-    rej = ~log.ok & active
-    n_act = max(int(active.sum()), 1)
-    infeas = float((rej & (log.floor > 0)).sum()) / n_act
-    solver_fail = float((rej & (log.floor <= 0)).sum()) / n_act
-    failed = int(res.final_state.failed.sum())
-    progress = float((log.s[-1] - log.s[0]).mean())
-    exp_progress = 0.5 * float(path.v_ref.mean()) * STEPS * model.Ts
-    max_ey = float(log.e_y[active].abs().max())
-    rate = B * STEPS / dt
-    print(f"[main] {rate:.1f} car-steps/s ({dt:.3f} s wall), accept "
-          f"{accept:.4f}, certified-infeasible {infeas:.4f}, solver-failure "
-          f"{solver_fail:.5f}, failed lanes {failed}, mean progress "
-          f"{progress:.3f} m (floor {exp_progress:.3f}), max|e_y| "
-          f"{max_ey:.4f} on {card}", flush=True)
-    if failed != 0 or solver_fail >= 0.02 or progress <= exp_progress \
-            or max_ey >= 0.30:
-        raise AssertionError("fleet health gates failed")
+    if launches != {"admm_fused": STEPS, "corridor_select": STEPS,
+                    "admm_structured": 0, "extract_occ": 0}:
+        raise AssertionError(f"main path launches {launches}")
+    static_log = res.log
+    h = health(res.log, res.final_state, path, model, STEPS)
+    print(f"[main] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+          f"{fmt_health(h)} on {card}", flush=True)
+    check_health(h, "main")
 
     # ---- phase 6: single car ----
     t0 = time.perf_counter()
@@ -247,6 +339,199 @@ def main():
     if not done or lap_accept < 0.9:
         raise AssertionError("single-car lap did not complete cleanly")
 
+    # ---- phase 7: K4 vs plain ----
+    scan = corridor_extract.build_scanline_table(grid, path, cfg.n_scan_samples)
+    _, idx = _locate_horizon(fleet, path, cfg)
+    hz = corridor_extract.horizon_tables(scan, idx)
+    k4_err = 0.0
+    for label, occ, px, py in (
+            ("shared grid", grid.occ, hz.px, hz.py),
+            ("per-lane grids", lane_grids(grid, path, K4_LANE_GRIDS, SEED),
+             hz.px[:K4_LANE_GRIDS].contiguous(),
+             hz.py[:K4_LANE_GRIDS].contiguous())):
+        ker = corridor_extract.extract_occ_cuda(occ, px, py)
+        ref = corridor_extract.extract_occ_gather(occ, px, py)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(ker, ref)
+        err = float((ker - ref).abs().max())
+        k4_err = max(k4_err, err)
+        print(f"[K4] extract_occ vs plain, {label} {tuple(occ.shape)}, "
+              f"samples {tuple(px.shape)}: bitwise={bitwise} "
+              f"max|diff|={err:.3e}, free fraction {float(ker.mean()):.4f}",
+              flush=True)
+        if not bitwise:
+            raise AssertionError(f"K4 differs from its plain version ({label})")
+    k4_ms = cuda_ms(lambda: corridor_extract.extract_occ_cuda(
+        grid.occ, hz.px, hz.py), 50)
+    k4_plain_ms = cuda_ms(lambda: corridor_extract.extract_occ_gather(
+        grid.occ, hz.px, hz.py), 50)
+    print(f"[K4] kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms at "
+          f"{tuple(hz.px.shape)} on the shared grid ({card})", flush=True)
+
+    # ---- phase 8: K3 vs plain ----
+    rows = {"reference": (cfg.Q, cfg.R, cfg.QN),
+            "strictly_convex": ((1.0, 0.1, 0.0), (0.5, 0.01), (1.0, 0.1, 0.0))}
+    topt = time_optimal_config(cfg)
+    rows["time_optimal"] = (topt.Q, topt.R, topt.QN)
+    row_of = torch.arange(B, device=dev) % len(SWEEP_ROWS)
+    wsel = lambda i: torch.tensor([rows[r][i] for r in SWEEP_ROWS],
+                                  dtype=torch.float32, device=dev)[row_of]
+    weights = WeightSet(Q=wsel(0), R=wsel(1), QN=wsel(2))
+
+    def k3_inputs(state):
+        located = mpc_locate(state, path)
+        b = gather_horizon_block(table, located[0])
+        cor = corridor_cuda.corridor_select_cuda(b, S, sm)
+        qp, _ = mpc_pre_solve(state, cfg, model, located, cor,
+                              solver_inputs_from_block(b, S), weights)
+        return pack_qp(qp), state.solver
+
+    def k3_check(label, sq, warm):
+        raw_k = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, cfg.solver)
+        raw_p = admm_cuda.solve_ltv_qp_structured_plain(sq, warm, cfg.solver)
+        torch.cuda.synchronize()
+        qmax = sq.qv.abs().flatten(1).amax(1)
+        sol_k = admm_cuda.finish_solve(raw_k, qmax, cfg.solver)
+        sol_p = admm_cuda.finish_solve(raw_p, qmax, cfg.solver)
+        bitwise = all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+        agree = float((sol_k.status == sol_p.status).float().mean())
+        d_rp = float((sol_k.r_prim - sol_p.r_prim).abs().max())
+        acc = ((sol_k.status != 2) & (sol_k.r_prim <= cfg.feas_tol)
+               & (sol_p.status != 2) & (sol_p.r_prim <= cfg.feas_tol))
+        d_u0 = float((sol_k.U[:, 0] - sol_p.U[:, 0]).abs()[acc].max())
+        print(f"[K3] {label}: bitwise={bitwise} status agree {agree:.5f}, "
+              f"max|d r_prim| {d_rp:.3e}, max|d U0| (accepted, "
+              f"{int(acc.sum())} lanes) {d_u0:.3e}", flush=True)
+        if not (agree >= K1_STATUS_AGREE and d_rp <= K1_RPRIM_TOL
+                and d_u0 <= K1_U0_TOL):
+            raise AssertionError(f"K3 disagrees with its plain version ({label})")
+        return max(d_rp, d_u0)
+
+    sq_first, warm_first = k3_inputs(first)
+    k3_err = k3_check("first QP, raw Monte-Carlo draw", sq_first, warm_first)
+    swept10 = simulate_fleet(grid, path, cfg, model, SimConfig(max_steps=10),
+                             fleet, table=table, weights=weights).final_state
+    k3_err = max(k3_err, k3_check("QP after 10 sweep steps",
+                                  *k3_inputs(swept10)))
+    k3_ms = cuda_ms(lambda: admm_cuda.solve_ltv_qp_structured_cuda(
+        sq_first, warm_first, cfg.solver), 3)
+    k3_plain_ms = cuda_ms(lambda: admm_cuda.solve_ltv_qp_structured_plain(
+        sq_first, warm_first, cfg.solver), 1)
+    print(f"[K3] kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms at B={B}, "
+          f"N={cfg.N} ({card})", flush=True)
+
+    # ---- phase 9: dynamic grid ----
+    dyn_sim = SimConfig(max_steps=STEPS, static_grid=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    dyn = simulate_fleet(grid, path, cfg, model, dyn_sim, fleet, table=scan)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dyn_launches = read_counts()
+    print(f"[dynamic] simulate_fleet(static_grid=False) B={B} x {STEPS} "
+          f"steps: launches {dyn_launches}", flush=True)
+    if dyn_launches != {"admm_fused": STEPS, "corridor_select": STEPS,
+                        "admm_structured": 0, "extract_occ": STEPS}:
+        raise AssertionError(f"dynamic path launches {dyn_launches}")
+    for f in ("x", "y", "v", "ok", "floor"):
+        a, b = getattr(dyn.log, f), getattr(static_log, f)
+        diff = (a != b) & ~(torch.isnan(a.float()) & torch.isnan(b.float()))
+        if diff.any():
+            t, lane = (int(i) for i in diff.nonzero()[0])
+            raise AssertionError(
+                f"dynamic log.{f} differs from the static one, first at step "
+                f"{t}, lane {lane}: {float(a[t, lane])} vs {float(b[t, lane])}")
+    h = health(dyn.log, dyn.final_state, path, model, STEPS)
+    print(f"[dynamic] log (x, y, v, ok, floor) bitwise equal to the static "
+          f"grid's; {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+          f"{fmt_health(h)} on {card}", flush=True)
+    check_health(h, "dynamic")
+
+    # ---- phase 10: sweep on the dynamic grid ----
+    reset_counts()
+    t0 = time.perf_counter()
+    sw = simulate_fleet(grid, path, cfg, model, dyn_sim, fleet, table=scan,
+                        weights=weights)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sweep_launches = read_counts()
+    print(f"[sweep] dynamic grid, WeightSet rows {SWEEP_ROWS} tiled over "
+          f"B={B} x {STEPS} steps: launches {sweep_launches}", flush=True)
+    if sweep_launches != {"admm_fused": 0, "corridor_select": STEPS,
+                          "admm_structured": STEPS, "extract_occ": STEPS}:
+        raise AssertionError(f"sweep path launches {sweep_launches}")
+    for i, name in enumerate(SWEEP_ROWS):
+        lanes = row_of == i
+        act = sw.log.active[:, lanes]
+        print(f"[sweep] {name}: accept "
+              f"{float(sw.log.ok[:, lanes][act].float().mean()):.4f}, mean "
+              f"progress {float((sw.log.s[-1] - sw.log.s[0])[lanes].mean()):.3f}"
+              f" m, failed lanes {int(sw.final_state.failed[lanes].sum())}",
+              flush=True)
+    h = health(sw.log, sw.final_state, path, model, STEPS, lanes=row_of == 0)
+    print(f"[sweep] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall); "
+          f"reference lanes: {fmt_health(h)} on {card}", flush=True)
+    check_health(h, "sweep, reference lanes")
+    for i, name in enumerate(SWEEP_ROWS[1:], 1):
+        lanes = row_of == i
+        if int(sw.final_state.failed[lanes].sum()) > SWEEP_FAILED_MAX \
+                * int(lanes.sum()):
+            raise AssertionError(f"sweep: failed lanes in row {name}")
+
+    # ---- phase 11: escalation ----
+    esc_cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, escalate_lanes=ESC_LANES))
+    reset_counts()
+    t0 = time.perf_counter()
+    esc = simulate_fleet(grid, path, esc_cfg, model,
+                         SimConfig(max_steps=ESC_STEPS), fleet, table=table)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    esc_launches = read_counts()
+    off = type(static_log)(*(f[:ESC_STEPS] for f in static_log))
+    acc_on = float(esc.log.ok[esc.log.active].float().mean())
+    acc_off = float(off.ok[off.active].float().mean())
+    flipped = int((~esc.log.ok[0] & off.ok[0]).sum())
+    print(f"[escalation] static grid, escalate_lanes={ESC_LANES}, B={B} x "
+          f"{ESC_STEPS} steps: launches {esc_launches}, accept {acc_on:.4f} "
+          f"vs {acc_off:.4f} without, step-0 lanes accepted without and "
+          f"rejected with: {flipped}; {B * ESC_STEPS / dt:.1f} car-steps/s "
+          f"({dt:.3f} s wall)", flush=True)
+    if esc_launches["admm_fused"] != 2 * ESC_STEPS:
+        raise AssertionError(f"escalation launches {esc_launches}")
+    if acc_on < acc_off or flipped:
+        raise AssertionError("escalation lowered acceptance")
+
+    # ---- phase 12: Real_Track ----
+    t0 = time.perf_counter()
+    rt_map, rt_path_cfg, rt_model, rt_cfg, rt_speed, _ = real_track_preset(
+        asset_dir=os.path.join(REPO, "assets", "maps"))
+    rt_grid = load_grid_map(rt_map, device=dev)
+    rt_path = compute_speed_profile(build_reference_path(rt_grid, rt_path_cfg),
+                                    rt_speed)
+    rng = np.random.default_rng(SEED)  # bench.py's draw (bench.py:198-204)
+    rt_fleet = init_fleet(
+        rt_path, rt_cfg.N, RT_BATCH,
+        e_y0=torch.tensor(rng.uniform(-0.1, 0.1, RT_BATCH),
+                          dtype=torch.float32, device=dev),
+        wp_id0=torch.tensor(rng.integers(0, rt_path.n_wp // 2, RT_BATCH),
+                            dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt = simulate_fleet(rt_grid, rt_path, rt_cfg, rt_model,
+                        SimConfig(max_steps=RT_STEPS), rt_fleet)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    h = health(rt.log, rt.final_state, rt_path, rt_model, RT_STEPS)
+    print(f"[real_track] {rt_grid.height}x{rt_grid.width} grid, "
+          f"{rt_path.n_wp} waypoints (setup {t_setup:.2f} s), B={RT_BATCH} x "
+          f"{RT_STEPS} steps: {RT_BATCH * RT_STEPS / dt:.1f} car-steps/s "
+          f"({dt:.3f} s wall, table included), {fmt_health(h)} on {card}",
+          flush=True)
+    if h["failed"] != 0 or h["solver_fail"] >= 0.02:
+        raise AssertionError("Real_Track health gates failed")
+
     print(json.dumps({"kernels": [
         {"name": "corridor_select", "route": "cuda",
          "source": "multi_purpose_mpc_tpu_torch/csrc/corridor_select.cu",
@@ -258,6 +543,16 @@ def main():
          "replaces": "multi_purpose_mpc_tpu/ops/admm_pallas.py:271",
          "launches": launches["admm_fused"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "admm_structured", "route": "cuda",
+         "source": "multi_purpose_mpc_tpu_torch/csrc/admm_structured.cu",
+         "replaces": "multi_purpose_mpc_tpu/ops/admm_pallas.py:1001",
+         "launches": sweep_launches["admm_structured"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "extract_occ", "route": "cuda",
+         "source": "multi_purpose_mpc_tpu_torch/csrc/extract_occ.cu",
+         "replaces": "multi_purpose_mpc_tpu/ops/corridor_extract.py:210",
+         "launches": dyn_launches["extract_occ"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,14 +6,17 @@ weight tuning), running on an NVIDIA H100.  The JAX package beside it is
 the reference this port is held against; this package imports torch,
 numpy, scipy and PIL, never jax.
 
-Ported so far: the static-grid fleet main path.
+Ported so far: the static-grid fleet main path, the dynamic-grid fleet
+(``SimConfig(static_grid=False)``), per-lane weight sweeps (``WeightSet``)
+and the escalation pass.
 
     config.py          typed configs + scenario presets (copied, not imported)
     utils/maps.py      map loading, obstacle rasterization
     utils/kernels.py   nvcc build + ctypes loading of csrc/*.cu
     ops/               grid, rays, path, dense ADMM, speed profile,
                        corridor segments, horizon table, structured ADMM;
-                       corridor_cuda.py (kernel K2), admm_cuda.py (kernel K1)
+                       corridor_cuda.py (kernel K2), admm_cuda.py (kernels
+                       K1 and K3), corridor_extract.py (kernel K4)
     models/bicycle.py  CarState, frame transforms, plant, linearization
     mpc.py             the fleet control step
     simulation.py      closed-loop rollouts (fleet and single car)
@@ -30,7 +33,9 @@ from multi_purpose_mpc_tpu_torch.config import (
     SpeedProfileConstraints,
     real_track_preset,
     sim_track_preset,
+    time_optimal_config,
 )
+from multi_purpose_mpc_tpu_torch.mpc import WeightSet, weights_from_config
 
 __version__ = "0.1.0"
 
@@ -42,6 +47,9 @@ __all__ = [
     "SimConfig",
     "SolverConfig",
     "SpeedProfileConstraints",
+    "WeightSet",
     "real_track_preset",
     "sim_track_preset",
+    "time_optimal_config",
+    "weights_from_config",
 ]

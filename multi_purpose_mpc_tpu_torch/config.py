@@ -82,8 +82,9 @@ class SolverConfig:
     carry_rho: bool = False
     polish_iters: int = 10
     polish_boost: float = 100.0
-    # Escalation pass of the JAX package (mpc.escalate_rejects); not ported
-    # yet, and off by default there too.
+    # Escalation pass (mpc.escalate_rejects): re-solve this many of the
+    # worst rejected lanes per step with escalate_rho_updates more rounds.
+    # Opt-in: on cost-flat kappa weights converged solves drive worse.
     escalate_lanes: int = 0
     escalate_rho_updates: int = 6
     eps_abs: float = 1e-3
@@ -165,8 +166,9 @@ class SimConfig:
     """Closed-loop simulation settings (reference: simulation.py:121-163)."""
 
     max_steps: int = 2000
-    # Static grid: free segments are extracted once per rollout.  The port
-    # runs only this path so far.
+    # Static grid: free segments are extracted once per rollout; False
+    # re-extracts them from the grid every step (the semantics a changing
+    # grid needs).
     static_grid: bool = True
 
 

@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from multi_purpose_mpc_tpu_torch.models.bicycle import CarState
+from multi_purpose_mpc_tpu_torch.mpc import WeightSet
 from multi_purpose_mpc_tpu_torch.ops.constraints import SegmentCandidates
+from multi_purpose_mpc_tpu_torch.ops.corridor_extract import ScanlineTable
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import SolverCarry
 from multi_purpose_mpc_tpu_torch.ops.path import PathData
@@ -43,6 +45,20 @@ def path_data(path, device="cpu") -> PathData:
 def segment_candidates(segs, device="cpu") -> SegmentCandidates:
     return SegmentCandidates(*(_tensor(getattr(segs, f), device)
                                for f in SegmentCandidates._fields))
+
+
+def scanline_table(table, device="cpu") -> ScanlineTable:
+    """The JAX package's ``ScanlineTable`` (its Mosaic-only ``row0`` /
+    ``window_rows`` dropped)."""
+    return ScanlineTable(*(_tensor(getattr(table, f), device)
+                           for f in ScanlineTable._fields))
+
+
+def weight_set(ws, device="cpu") -> WeightSet:
+    """A ``WeightSet``, ``None`` leaves kept, float32."""
+    leaf = lambda a: None if a is None else torch.tensor(
+        np.asarray(a, np.float32), device=device)
+    return WeightSet(*(leaf(getattr(ws, f)) for f in WeightSet._fields))
 
 
 def solver_carry(carry, device="cpu") -> SolverCarry:

@@ -6,14 +6,17 @@ select the corridor (kernel K2), assemble + solve the QP and compute the
 violation floor (kernel K1), then accept the plan or replay the cached one.
 Statuses, acceptance and replay are per-lane values, never exceptions.
 
-Only the static-grid horizon-table path is ported; per-lane weight sweeps
-(``WeightSet``) and the escalation pass come later.
+Per-lane cost weights (:class:`WeightSet`, a controller-tuning sweep)
+assemble per-lane QPs here and solve them with kernel K3; the opt-in
+escalation pass (:func:`escalate_rejects`) re-solves the worst rejected
+lanes with K1 or K3.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,7 +24,8 @@ from multi_purpose_mpc_tpu_torch.config import MPCConfig, ModelConfig
 from multi_purpose_mpc_tpu_torch.models.bicycle import (
     CarState, linearize, locate_waypoint, t2s)
 from multi_purpose_mpc_tpu_torch.ops import admm
-from multi_purpose_mpc_tpu_torch.ops.admm_cuda import solve_mpc_qp_fused
+from multi_purpose_mpc_tpu_torch.ops.admm_cuda import (
+    solve_ltv_qp_structured, solve_mpc_qp_fused)
 from multi_purpose_mpc_tpu_torch.ops.constraints import (
     Corridor, SegmentCandidates, corridor_from_segments)
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
@@ -30,6 +34,26 @@ from multi_purpose_mpc_tpu_torch.ops.ltv_qp import LTVQP, LTVSolution
 from multi_purpose_mpc_tpu_torch.ops.path import PathData
 
 _EPS = 1e-12
+
+
+class WeightSet(NamedTuple):
+    """Diagonal MPC cost weights as runtime data: path tracking,
+    time-optimal driving and obstacle avoidance are weight choices on one
+    controller (the reference's README.md:17-19).  With a leading fleet
+    axis every lane runs a differently weighted controller in one rollout.
+
+    Leaves: ``Q``/``QN`` (..., 3), ``R`` (..., 2) float tensors; ``None``
+    means "use the :class:`MPCConfig` weights" for that leaf."""
+
+    Q: Optional[torch.Tensor]  # (..., 3) running state cost diagonal
+    R: Optional[torch.Tensor]  # (..., 2) input cost diagonal
+    QN: Optional[torch.Tensor]  # (..., 3) terminal state cost diagonal
+
+
+def weights_from_config(cfg: MPCConfig, device="cpu") -> WeightSet:
+    """The config's static weights as a :class:`WeightSet` (no fleet axis)."""
+    f = lambda w: torch.tensor(w, dtype=torch.float32, device=device)
+    return WeightSet(Q=f(cfg.Q), R=f(cfg.R), QN=f(cfg.QN))
 
 
 class ControlOutput(NamedTuple):
@@ -45,9 +69,12 @@ class ControlOutput(NamedTuple):
 
 
 def assemble_ltv_qp(cfg: MPCConfig, model: ModelConfig, e_y, e_psi,
-                    kappa_pred, corridor: Corridor, horizon) -> LTVQP:
+                    kappa_pred, corridor: Corridor, horizon,
+                    weights: Optional[WeightSet] = None) -> LTVQP:
     """Build the horizon QPs (MPC.py:61-155) from the gathered horizon data
-    ``(v_ref, kappa_ref, delta_s)`` (each (B, N)) and the corridor."""
+    ``(v_ref, kappa_ref, delta_s)`` (each (B, N)) and the corridor.
+    ``weights``: per-lane (B, 3|2) or shared (3|2,) cost diagonals; a
+    ``None`` leaf falls back to the config's."""
     N = cfg.N
     v_ref, kappa_ref, delta_s = horizon
     Bsz = v_ref.shape[0]
@@ -61,9 +88,12 @@ def assemble_ltv_qp(cfg: MPCConfig, model: ModelConfig, e_y, e_psi,
     uq = torch.einsum("bnij,bnj->bni", B, ur) - f
     beq = torch.cat([-x0[:, None], uq], 1)
 
-    P_x = torch.cat([vec(cfg.Q).expand(Bsz, N, 3),
-                     vec(cfg.QN).expand(Bsz, 1, 3)], 1)
-    P_u = vec(cfg.R).expand(Bsz, N, 2)
+    base = weights_from_config(cfg, dev)
+    w = base if weights is None else weights
+    leaf = lambda a, b: (b if a is None else a).to(dt).reshape(-1, 1, b.shape[-1])
+    Qd, QNd, Rd = leaf(w.Q, base.Q), leaf(w.QN, base.QN), leaf(w.R, base.R)
+    P_x = torch.cat([Qd.expand(Bsz, N, 3), QNd.expand(Bsz, 1, 3)], 1)
+    P_u = Rd.expand(Bsz, N, 2)
     # state reference: corridor centre-line e_y for steps 1..N (MPC.py:124-125)
     xr = torch.zeros((Bsz, N + 1, 3), dtype=dt, device=dev)
     xr[:, 1:, 0] = (corridor.lb + corridor.ub) / 2.0
@@ -184,21 +214,127 @@ def mpc_post_solve(state: CarState, sol: LTVSolution, aux,
                          corridor=corridor, X_pred=sol.X)
 
 
+def mpc_pre_solve(state: CarState, cfg: MPCConfig, model: ModelConfig,
+                  located, corridor: Corridor, horizon,
+                  weights: Optional[WeightSet] = None):
+    """Fleet work before a structured QP solve (MPC.py:172-180): assembly
+    and violation floor from the located lanes, their corridor and their
+    horizon data ``(v_ref, kappa_ref, delta_s)`` (each (B, N)).  Returns
+    ``(qp, aux)``."""
+    wp_id, e_y, e_psi = located
+    kp = kappa_predictions(state.u_seq, cfg.N)
+    qp = assemble_ltv_qp(cfg, model, e_y, e_psi, kp, corridor, horizon,
+                         weights=weights)
+    floor = corridor_violation_floor(e_y, e_psi, horizon, corridor, cfg, model)
+    return qp, (wp_id, e_y, e_psi, corridor, floor)
+
+
+def escalate_rejects(sol: LTVSolution, floor: torch.Tensor, feas_tol: float,
+                     k: int, resolve) -> LTVSolution:
+    """Second-chance solve for would-be-rejected lanes (the JAX package's
+    ``escalate_rejects``): the ``k`` lanes with the largest acceptance
+    margin ``r_prim - (feas_tol + floor)`` are re-solved by
+    ``resolve(idx, warm) -> LTVSolution``, warm-started from the main
+    solve's final iterate, and merged back wherever the margin was positive
+    and the residual improved.
+
+    Every field of the solution is merged, the warm-start carry included:
+    that is what the JAX code does (``jax.tree.map(merge, sol, sub)``),
+    although its docstring says the carry is not merged.
+
+    The JAX code runs the pass under a ``lax.cond`` on "any margin > 0".
+    Here it always runs on the top-k lanes: the merge mask makes it a no-op
+    where nothing was rejected, and the step needs no device-to-host sync.
+    At fleet scale some lane is rejected in almost every step, so the cond
+    would fire anyway."""
+    k = min(k, sol.r_prim.shape[0])
+    if k <= 0:
+        return sol
+    margin = sol.r_prim - (feas_tol + floor)
+    key = torch.where(margin > 0, margin, torch.full_like(margin, -math.inf))
+    idx = torch.topk(key, k).indices
+    sel = margin[idx] > 0
+    sub = resolve(idx, sol.carry.take(idx))
+    better = sel & (sub.r_prim < sol.r_prim[idx])
+
+    def merge(a, b):
+        out = a.clone()
+        out[idx] = torch.where(better.reshape((-1,) + (1,) * (b.dim() - 1)),
+                               b, a[idx])
+        return out
+
+    carry = type(sol.carry)(**{
+        f.name: merge(getattr(sol.carry, f.name), getattr(sub.carry, f.name))
+        for f in dataclasses.fields(sol.carry)})
+    return LTVSolution(X=merge(sol.X, sub.X), U=merge(sol.U, sub.U),
+                       status=merge(sol.status, sub.status),
+                       r_prim=merge(sol.r_prim, sub.r_prim),
+                       r_dual=merge(sol.r_dual, sub.r_dual), carry=carry)
+
+
+def _escalated_cfg(solver_cfg):
+    """Escalation budget: ``escalate_rho_updates`` more adapted-rho rounds
+    from the main solve's warm iterate, resuming its rho, no polish (the
+    JAX package's ``_escalated_cfg``: the pass brings a just-above-tolerance
+    residual into the production accuracy class, it does not converge the
+    QP)."""
+    return dataclasses.replace(solver_cfg,
+                               rho_updates=solver_cfg.escalate_rho_updates,
+                               carry_rho=True, escalate_lanes=0,
+                               polish_iters=0)
+
+
+def mpc_step_batched_with_corridor(state: CarState, cfg: MPCConfig,
+                                   model: ModelConfig, located,
+                                   corridor: Corridor, horizon,
+                                   weights: Optional[WeightSet] = None,
+                                   ) -> ControlOutput:
+    """Fleet control step given the corridor and the horizon data
+    ``(v_ref, kappa_ref, delta_s)`` (each (B, N)): the entry of callers
+    that select corridors themselves, e.g. the dynamic-grid rollout.
+
+    No ``weights``: fused assembly + ADMM + floor, kernel K1.  Per-lane
+    ``weights``: per-lane assembly here, then kernel K3 (K1 bakes the
+    config's weights).  ``cfg.solver.escalate_lanes > 0`` adds the
+    escalation pass, through the same kernel."""
+    wp_id, e_y, e_psi = located
+    esc = _escalated_cfg(cfg.solver)
+    if weights is not None:
+        qp, aux = mpc_pre_solve(state, cfg, model, located, corridor, horizon,
+                                weights)
+        sol = solve_ltv_qp_structured(qp, state.solver, cfg.solver)
+
+        def resolve(idx, warm):
+            return solve_ltv_qp_structured(qp.take(idx), warm, esc)
+    else:
+        v_ref, kappa_ref, delta_s = horizon
+        x0 = torch.stack([e_y, e_psi, torch.zeros_like(e_y)], -1)
+        kp = kappa_predictions(state.u_seq, cfg.N)
+        sol, floor = solve_mpc_qp_fused(v_ref, kappa_ref, delta_s,
+                                        corridor.lb, corridor.ub, x0, kp,
+                                        state.solver, cfg.solver, cfg, model)
+        aux = (wp_id, e_y, e_psi, corridor, floor)
+
+        def resolve(idx, warm):
+            return solve_mpc_qp_fused(
+                v_ref[idx], kappa_ref[idx], delta_s[idx], corridor.lb[idx],
+                corridor.ub[idx], x0[idx], kp[idx], warm, esc, cfg, model)[0]
+    if cfg.solver.escalate_lanes > 0:
+        sol = escalate_rejects(sol, aux[4], cfg.feas_tol,
+                               cfg.solver.escalate_lanes, resolve)
+    return mpc_post_solve(state, sol, aux, cfg, model)
+
+
 def mpc_step_batched(state: CarState, path: PathData, cfg: MPCConfig,
-                     model: ModelConfig, table: torch.Tensor) -> ControlOutput:
+                     model: ModelConfig, table: torch.Tensor,
+                     weights: Optional[WeightSet] = None) -> ControlOutput:
     """Fleet control step through the windowed horizon table
     (:mod:`.ops.horizon_table`): one block take, corridor selection (K2),
-    fused assembly + ADMM + floor (K1), acceptance/replay."""
-    if cfg.solver.escalate_lanes > 0:
-        raise NotImplementedError("the escalation pass is not ported yet")
-    wp_id, e_y, e_psi = mpc_locate(state, path)
-    blk = gather_horizon_block(table, wp_id)
+    then the solve of :func:`mpc_step_batched_with_corridor` fed from the
+    block (K1, or per-lane assembly + K3 under ``weights``)."""
+    located = mpc_locate(state, path)
+    blk = gather_horizon_block(table, located[0])
     corridor = corridor_select_from_block(blk, cfg, model.safety_margin)
-    v_ref, kappa_ref, delta_s = solver_inputs_from_block(blk, cfg.max_segments)
-    x0 = torch.stack([e_y, e_psi, torch.zeros_like(e_y)], -1)
-    kp = kappa_predictions(state.u_seq, cfg.N)
-    sol, floor = solve_mpc_qp_fused(v_ref, kappa_ref, delta_s, corridor.lb,
-                                    corridor.ub, x0, kp, state.solver,
-                                    cfg.solver, cfg, model)
-    return mpc_post_solve(state, sol, (wp_id, e_y, e_psi, corridor, floor),
-                          cfg, model)
+    horizon = solver_inputs_from_block(blk, cfg.max_segments)
+    return mpc_step_batched_with_corridor(state, cfg, model, located,
+                                          corridor, horizon, weights=weights)

@@ -1,6 +1,15 @@
-"""Kernel K1: fused QP assembly + ADMM + violation floor, one lane per thread.
+"""Kernels K1 (fused QP assembly + ADMM + violation floor) and K3 (ADMM on
+pre-assembled QPs), one lane per thread, sharing one ADMM core
+(``csrc/admm_core.cuh``).
 
-Replaces the Pallas TPU kernel ``multi_purpose_mpc_tpu/ops/admm_pallas.py``
+K3 replaces the Pallas TPU kernel ``_make_kernel`` with ``build=None``
+(entry ``solve_ltv_qp_pallas``): per-lane weight sweeps and the escalation
+pass under weights assemble their QPs outside the kernel, and
+:func:`solve_ltv_qp_structured` (plain version
+:func:`solve_ltv_qp_structured_plain`, kernel ``csrc/admm_structured.cu``)
+solves them.  Both kernels end in :func:`finish_solve`.
+
+K1 replaces the Pallas TPU kernel ``multi_purpose_mpc_tpu/ops/admm_pallas.py``
 (``_make_kernel`` with ``build=_make_builder``, entry
 ``solve_mpc_qp_fused(..., return_floor=True)``).  For each lane it
 assembles the N-stage LTV QP from the raw horizon data, runs the OSQP-style
@@ -47,8 +56,8 @@ import torch
 from multi_purpose_mpc_tpu_torch.config import MPCConfig, ModelConfig, SolverConfig
 from multi_purpose_mpc_tpu_torch.ops.constraints import Corridor
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import (
-    NW, NX, LTVSolution, SolverCarry, StageQP, _amax, admm_rounds,
-    dual_residual, init_solver_carry, pack_carry, primal_residual,
+    LTVQP, NW, NX, LTVSolution, SolverCarry, StageQP, _amax, admm_rounds,
+    dual_residual, init_solver_carry, pack_carry, pack_qp, primal_residual,
     solver_status, unpack_carry)
 from multi_purpose_mpc_tpu_torch.utils import kernels
 
@@ -131,14 +140,20 @@ def solve_mpc_qp_fused_plain(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-class _Params(ctypes.Structure):
-    """Mirror of ``AdmmParams`` in csrc/admm_fused.cu (passed by value)."""
+class _SolverParams(ctypes.Structure):
+    """Mirror of ``SolverParams`` in csrc/admm_core.cuh (passed by value)."""
 
     _fields_ = [("sigma", ctypes.c_float), ("alpha", ctypes.c_float),
                 ("one_m_alpha", ctypes.c_float), ("eq_scale", ctypes.c_float),
                 ("iterations", ctypes.c_int), ("rho_updates", ctypes.c_int),
                 ("polish_iters", ctypes.c_int),
-                ("polish_boost", ctypes.c_float),
+                ("polish_boost", ctypes.c_float)]
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``AdmmParams`` in csrc/admm_fused.cu (passed by value)."""
+
+    _fields_ = [("s", _SolverParams),
                 ("Q", ctypes.c_float * 3), ("QN", ctypes.c_float * 3),
                 ("R", ctypes.c_float * 2), ("xmin", ctypes.c_float * 3),
                 ("xmax", ctypes.c_float * 3), ("v_min", ctypes.c_float),
@@ -146,13 +161,18 @@ class _Params(ctypes.Structure):
                 ("kmax", ctypes.c_float)]
 
 
-def _params(cfg: SolverConfig, mpc_cfg: MPCConfig, model_cfg: ModelConfig):
-    f3 = ctypes.c_float * 3
-    return _Params(
+def _solver_params(cfg: SolverConfig) -> _SolverParams:
+    return _SolverParams(
         sigma=cfg.sigma, alpha=cfg.alpha, one_m_alpha=1.0 - cfg.alpha,
         eq_scale=cfg.rho_eq_scale, iterations=cfg.iterations,
         rho_updates=max(cfg.rho_updates, 1), polish_iters=cfg.polish_iters,
-        polish_boost=cfg.polish_boost, Q=f3(*mpc_cfg.Q), QN=f3(*mpc_cfg.QN),
+        polish_boost=cfg.polish_boost)
+
+
+def _params(cfg: SolverConfig, mpc_cfg: MPCConfig, model_cfg: ModelConfig):
+    f3 = ctypes.c_float * 3
+    return _Params(
+        s=_solver_params(cfg), Q=f3(*mpc_cfg.Q), QN=f3(*mpc_cfg.QN),
         R=(ctypes.c_float * 2)(*mpc_cfg.R), xmin=f3(*mpc_cfg.xmin),
         xmax=f3(*mpc_cfg.xmax), v_min=mpc_cfg.v_min, v_max=mpc_cfg.v_max,
         ay_max=mpc_cfg.ay_max, kmax=mpc_cfg.kappa_max(model_cfg.length))
@@ -217,7 +237,63 @@ solve_mpc_qp_fused_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Dispatcher and the status / carry logic shared by both
+# Kernel K3: the structured solve of pre-assembled per-lane QPs
+# ---------------------------------------------------------------------------
+
+def solve_ltv_qp_structured_plain(sq: StageQP, warm: SolverCarry,
+                                  cfg: SolverConfig):
+    """K3's plain version: raw outputs ``(W, Zw, Yeq, Yw, rho, r_prim,
+    r_dual)`` of the ADMM on the stage-layout QPs ``sq``, resuming the
+    carried ``warm.rho`` as the TPU kernel does."""
+    (W, Zw, Yeq, Yw), rho = admm_rounds(sq, cfg, pack_carry(warm), warm.rho)
+    rd, _ = dual_residual(sq, W, Yeq, Yw)
+    return W, Zw, Yeq, Yw, rho, primal_residual(sq, W), rd
+
+
+def _structured_library():
+    fn = kernels.load("admm_structured").admm_structured_launch
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_int,
+                                           _SolverParams, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def solve_ltv_qp_structured_cuda(sq: StageQP, warm: SolverCarry,
+                                 cfg: SolverConfig):
+    """Launch ``admm_structured_kernel`` on the current stream; same outputs
+    as :func:`solve_ltv_qp_structured_plain`.  Raises on anything the kernel
+    does not take, and on a failed launch."""
+    dev = sq.AB.device
+    if dev.type != "cuda":
+        raise ValueError(f"solve_ltv_qp_structured_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    Bsz, N = sq.AB.shape[:2]
+    if not 1 <= N <= N_MAX:
+        raise ValueError(f"horizon N={N} outside the kernel's 1..{N_MAX}")
+    W0, Zw0, Yeq0, Yw0 = (t.contiguous() for t in pack_carry(warm))
+    S5, S3 = (Bsz, N + 1, NW), (Bsz, N + 1, NX)
+    ins = [("AB", sq.AB, (Bsz, N, NX, NW)), ("beq", sq.beq, S3),
+           ("Pd", sq.Pd, S5), ("qv", sq.qv, S5), ("lw", sq.lw, S5),
+           ("uw", sq.uw, S5), ("W0", W0, S5), ("Zw0", Zw0, S5),
+           ("Yeq0", Yeq0, S3), ("Yw0", Yw0, S5), ("rho0", warm.rho, (Bsz,))]
+    for name, t, shape in ins:
+        _check(t, name, shape, dev)
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    outs = (empty(*S5), empty(*S5), empty(*S3), empty(*S5), empty(Bsz),
+            empty(Bsz), empty(Bsz))
+    rc = _structured_library()(
+        *(t.data_ptr() for _, t, _ in ins), *(t.data_ptr() for t in outs),
+        Bsz, N, _solver_params(cfg), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(rc, "admm_structured_kernel")
+    solve_ltv_qp_structured_cuda.launches += 1
+    return outs
+
+
+solve_ltv_qp_structured_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dispatchers and the status / carry logic shared by K1 and K3
 # ---------------------------------------------------------------------------
 
 def solve_mpc_qp_fused(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0, kappa_pred,
@@ -243,24 +319,45 @@ def solve_mpc_qp_fused(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0, kappa_pred,
 
 def finish(raw, v_ref, kappa_ref, lb_c, ub_c, cfg: SolverConfig,
            mpc_cfg: MPCConfig):
-    """Status, eps and carry of the fused solve from its raw outputs.
+    """``(LTVSolution, floor)`` of the fused solve from its raw outputs.
 
     ``eps_d`` uses the raw-data bound ``qmax`` of the fused TPU entry
-    point, not the structured solver's ``scale_d``; a non-finite lane's
-    carry resets to the fresh carry."""
-    W, Zw, Yeq, Yw, rho, rp, rd, floor = raw
-    Bsz, N = v_ref.shape
-    finite = torch.isfinite(W).flatten(1).all(1)
-    eps_p = cfg.eps_abs + cfg.eps_rel * _amax(W)
+    point, not the structured solver's ``scale_d``."""
+    *raw7, floor = raw
     Q0, QN0 = float(mpc_cfg.Q[0]), float(mpc_cfg.QN[0])
     R0, R1 = (float(r) for r in mpc_cfg.R)
     ctr = 0.5 * (lb_c + ub_c)
     qmax = torch.maximum(_amax(ctr) * max(Q0, QN0),
                          torch.maximum(_amax(v_ref) * R0, _amax(kappa_ref) * R1))
+    return finish_solve(raw7, qmax, cfg), floor
+
+
+def solve_ltv_qp_structured(qp: LTVQP, warm: SolverCarry,
+                            cfg: SolverConfig) -> LTVSolution:
+    """Batched solve of pre-assembled QPs (the TPU entry
+    ``solve_ltv_qp_pallas``): CPU tensors run the plain version, CUDA
+    tensors kernel K3.  The step size resumes from ``warm.rho`` whatever
+    ``cfg.carry_rho`` says, and ``eps_d`` uses max(|q_x|, |q_u|), as the
+    TPU entry does."""
+    sq = pack_qp(qp)
+    if sq.AB.device.type == "cpu":
+        raw = solve_ltv_qp_structured_plain(sq, warm, cfg)
+    else:
+        raw = solve_ltv_qp_structured_cuda(sq, warm, cfg)
+    return finish_solve(raw, _amax(sq.qv), cfg)
+
+
+def finish_solve(raw, qmax, cfg: SolverConfig) -> LTVSolution:
+    """Status, eps and carry from the raw solver outputs ``(W, Zw, Yeq, Yw,
+    rho, r_prim, r_dual)`` and the per-lane linear-cost bound ``qmax``: a
+    non-finite lane is DIVERGED and its carry resets to the fresh carry."""
+    W, Zw, Yeq, Yw, rho, rp, rd = raw
+    Bsz, N = W.shape[0], W.shape[1] - 1
+    finite = torch.isfinite(W).flatten(1).all(1)
+    eps_p = cfg.eps_abs + cfg.eps_rel * _amax(W)
     eps_d = cfg.eps_abs + cfg.eps_rel * qmax
     status = solver_status(finite, (rp <= eps_p) & (rd <= eps_d))
     carry = unpack_carry(W, Zw, Yeq, Yw, rho).select(
         finite, init_solver_carry(N, Bsz, cfg.rho, W.device))
-    sol = LTVSolution(X=W[..., :NX], U=W[:, :-1, NX:], status=status,
-                      r_prim=rp, r_dual=rd, carry=carry)
-    return sol, floor
+    return LTVSolution(X=W[..., :NX], U=W[:, :-1, NX:], status=status,
+                       r_prim=rp, r_dual=rd, carry=carry)

@@ -49,7 +49,11 @@ def segments_from_samples(occ, cx, cy, min_width,
     """Free segments from sampled scanline occupancy ``occ`` (..., K) with
     sample cell centers ``cx``/``cy`` (..., K).  Endpoints are the occupied
     (or border) cells delimiting each free run; runs narrower than
-    ``min_width`` are dropped and the rest compacted to the front."""
+    ``min_width`` are dropped and the rest compacted to the front.
+
+    Runs are indexed by their run number with scatters and gathers, so the
+    working set is O(K) per scanline (the JAX package's one-hot
+    formulation is O(K^2), several GB per dynamic-grid fleet step)."""
     free = occ > 0.5
     K = occ.shape[-1]
     dev = occ.device
@@ -60,33 +64,45 @@ def segments_from_samples(occ, cx, cy, min_width,
     starts = free & ~prev_free
     ends = free & ~next_free
 
-    # every run first (at most K//2 + 1), then width-filter and compact
+    # every run first (at most K//2 + 1), then width-filter and compact.
+    # Sample k of a start (end) goes to slot (run number - 1); every other
+    # sample goes to the spare slot ``raw``, which is dropped.
     raw = K // 2 + 1
     rs = torch.cumsum(starts.to(torch.int32), -1)
     re_ = torch.cumsum(ends.to(torch.int32), -1)
-    r_iota = torch.arange(1, raw + 1, dtype=torch.int32, device=dev)[:, None]
-    k_iota = torch.arange(K, dtype=torch.int32, device=dev)
-    sOH = starts[..., None, :] & (rs[..., None, :] == r_iota)  # (..., raw, K)
-    eOH = ends[..., None, :] & (re_[..., None, :] == r_iota)
-    start_idx = (sOH * k_iota).sum(-1)
-    end_idx = (eOH * k_iota).sum(-1)
-    valid = r_iota[:, 0] <= rs[..., -1:]
+    k_iota = torch.arange(K, device=dev).expand_as(rs)
+    spare = torch.full_like(k_iota, raw)
+    slot0 = torch.zeros(lead + (raw + 1,), dtype=torch.long, device=dev)
+    start_idx = slot0.scatter(
+        -1, torch.where(starts, rs.long() - 1, spare), k_iota)[..., :raw]
+    end_idx = slot0.scatter(
+        -1, torch.where(ends, re_.long() - 1, spare), k_iota)[..., :raw]
+    r_iota = torch.arange(1, raw + 1, dtype=torch.int32, device=dev)
+    valid = r_iota <= rs[..., -1:]
 
-    ub_i = torch.clamp(start_idx - 1, min=0).long()
-    lb_i = torch.clamp(end_idx + 1, max=K - 1).long()
+    ub_i = torch.clamp(start_idx - 1, min=0)
+    lb_i = torch.clamp(end_idx + 1, max=K - 1)
     ubx, uby = torch.gather(cx, -1, ub_i), torch.gather(cy, -1, ub_i)
     lbx, lby = torch.gather(cx, -1, lb_i), torch.gather(cy, -1, lb_i)
     valid = valid & (torch.hypot(ubx - lbx, uby - lby) > min_width)
 
-    pos = torch.cumsum(valid.to(torch.int32), -1) - 1
-    s_iota = torch.arange(max_segments, dtype=torch.int32, device=dev)[:, None]
-    cOH = valid[..., None, :] & (pos[..., None, :] == s_iota)  # (..., S, raw)
-    cf = cOH.to(occ.dtype)
-    pick = lambda v: (cf * v[..., None, :]).sum(-1)
+    # compaction: valid run j goes to output slot (number of valid runs
+    # before it); slots past the last valid run stay empty (0, invalid)
+    pos = torch.cumsum(valid.to(torch.int64), -1) - 1
+    keep = valid & (pos < max_segments)
+    run_iota = torch.arange(raw, device=dev).expand_as(pos)
+    src = torch.zeros(lead + (max_segments + 1,), dtype=torch.long,
+                      device=dev).scatter(
+        -1, torch.where(keep, pos, torch.full_like(pos, max_segments)),
+        run_iota)[..., :max_segments]
+    out_valid = (torch.arange(max_segments, device=dev)
+                 < keep.sum(-1, keepdim=True))
+    zero = torch.zeros((), dtype=occ.dtype, device=dev)
+    pick = lambda v: torch.where(out_valid, torch.gather(v, -1, src), zero)
     return SegmentCandidates(
         ub_xy=torch.stack([pick(ubx), pick(uby)], -1),
         lb_xy=torch.stack([pick(lbx), pick(lby)], -1),
-        valid=cOH.any(-1))
+        valid=out_valid)
 
 
 def free_segments(grid: GridMap, p_ub, p_lb, min_width,

@@ -11,6 +11,12 @@ Per base waypoint ``w`` and horizon step ``n`` the row packs:
   sin psi, the previous step's ds / cos psi / sin psi, and the static
   free-segment candidates (ub_xy, lb_xy interleaved per segment, valid);
 * QP inputs at waypoint ``w + n``: v_ref, kappa, delta_s.
+
+On a dynamic grid the segment columns change every step:
+:func:`horizon_block_from_segments` takes the same block and overwrites
+them with the step's per-lane candidates (the port's counterpart of the
+TPU entry ``corridor_select_pallas_segs``), so kernel K2 runs unchanged
+and the pose columns keep the table's float64-rounded trig.
 """
 
 from __future__ import annotations
@@ -57,9 +63,32 @@ def build_horizon_table(path: PathData, segs: SegmentCandidates,
     return torch.cat(cols, -1).to(torch.float32).contiguous()
 
 
+def empty_segments(n_wp: int, S: int, device) -> SegmentCandidates:
+    """No free-segment candidates at any waypoint: the table's segment
+    columns for a rollout that supplies its own every step."""
+    z = torch.zeros((n_wp, S, 2), dtype=torch.float32, device=device)
+    return SegmentCandidates(ub_xy=z, lb_xy=z,
+                             valid=torch.zeros((n_wp, S), dtype=torch.bool,
+                                               device=device))
+
+
 def gather_horizon_block(table: torch.Tensor, wp_id: torch.Tensor) -> torch.Tensor:
     """One contiguous-row take: (B,) base waypoint ids -> (B, N, F)."""
     return table[wp_id.long()]
+
+
+def horizon_block_from_segments(table: torch.Tensor, wp_id: torch.Tensor,
+                                segs: SegmentCandidates) -> torch.Tensor:
+    """``table[wp_id]`` with its segment columns replaced by per-lane
+    candidates ``segs`` (leading (B, N), for the corridor stages at
+    waypoints ``wp_id + 1 + n``) -> (B, N, F)."""
+    Bsz, N, S = segs.valid.shape
+    ub0, lb0, va0, sol0, _ = _cols(S)
+    blk = gather_horizon_block(table, wp_id)
+    blk[..., ub0:lb0] = segs.ub_xy.reshape(Bsz, N, 2 * S)
+    blk[..., lb0:va0] = segs.lb_xy.reshape(Bsz, N, 2 * S)
+    blk[..., va0:sol0] = segs.valid.to(blk.dtype)
+    return blk
 
 
 def solver_inputs_from_block(blk: torch.Tensor, S: int):

@@ -56,6 +56,10 @@ class LTVQP:
     def N(self) -> int:
         return self.B.shape[-3]
 
+    def take(self, idx) -> "LTVQP":
+        """The QPs of lanes ``idx``."""
+        return _take(self, idx)
+
 
 @dataclasses.dataclass
 class StageQP:
@@ -87,6 +91,10 @@ class SolverCarry:
     Yu: torch.Tensor  # (B, N, 2)
     rho: torch.Tensor  # (B,) adapted step size
 
+    def take(self, idx) -> "SolverCarry":
+        """The carries of lanes ``idx``."""
+        return _take(self, idx)
+
     def select(self, keep: torch.Tensor, other: "SolverCarry") -> "SolverCarry":
         """Per lane: this carry where ``keep`` (B,) else ``other``."""
         return SolverCarry(**{
@@ -112,6 +120,11 @@ class LTVSolution(NamedTuple):
     r_prim: torch.Tensor  # (B,) inf-norm primal residual
     r_dual: torch.Tensor  # (B,) inf-norm dual residual
     carry: SolverCarry  # final iterate for the next step's warm start
+
+
+def _take(obj, idx):
+    return type(obj)(**{f.name: getattr(obj, f.name)[idx]
+                        for f in dataclasses.fields(obj)})
 
 
 def _where_lanes(keep, a, b):

@@ -2,9 +2,15 @@
 
 The JAX package's ``lax.scan`` over time becomes a Python loop of fleet
 steps; per-step logs are stacked into (T, B) tensors on the fleet's device.
-Only the static-grid rollout is ported: free segments and the windowed
-horizon table are built once per rollout, and every step goes through the
-table, kernel K2 and kernel K1.
+
+* static grid: free segments and the windowed horizon table are built once
+  per rollout; every step goes through the table, kernel K2 and kernel K1;
+* dynamic grid (``SimConfig(static_grid=False)``): the scanline table is
+  built once per rollout, and every step re-extracts the free segments
+  from the grid (kernel K4), writes them into the horizon block and
+  selects the corridor (K2) before the solve;
+* ``weights``: a per-lane :class:`~.mpc.WeightSet` sweep on either grid,
+  solved by kernel K3 instead of K1.
 """
 
 from __future__ import annotations
@@ -19,11 +25,18 @@ from multi_purpose_mpc_tpu_torch.config import MPCConfig, ModelConfig, SimConfig
 from multi_purpose_mpc_tpu_torch.models.bicycle import (
     CarState, drive, horizon_indices, init_car_state)
 from multi_purpose_mpc_tpu_torch.mpc import (
-    ControlOutput, corridor_violation_floor, mpc_corridor, mpc_step_batched)
-from multi_purpose_mpc_tpu_torch.ops.constraints import extract_all_segments
+    ControlOutput, WeightSet, corridor_violation_floor, mpc_corridor,
+    mpc_locate, mpc_step_batched, mpc_step_batched_with_corridor)
+from multi_purpose_mpc_tpu_torch.ops.constraints import (
+    SegmentCandidates, extract_all_segments)
+from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select
+from multi_purpose_mpc_tpu_torch.ops.corridor_extract import (
+    ScanlineTable, build_scanline_table, fleet_dynamic_segments)
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap
-from multi_purpose_mpc_tpu_torch.ops.horizon_table import build_horizon_table
-from multi_purpose_mpc_tpu_torch.ops.path import PathData
+from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
+    build_horizon_table, empty_segments, horizon_block_from_segments,
+    solver_inputs_from_block)
+from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
 
 
 class SimLog(NamedTuple):
@@ -75,21 +88,116 @@ def static_horizon_table(grid: GridMap, path: PathData, cfg: MPCConfig,
 
 def simulate_fleet(grid: GridMap, path: PathData, cfg: MPCConfig,
                    model: ModelConfig, sim: SimConfig, state0: CarState,
-                   table: Optional[torch.Tensor] = None) -> SimResult:
+                   table=None, weights: Optional[WeightSet] = None) -> SimResult:
     """Fleet closed-loop rollout of ``sim.max_steps`` steps; ``state0``
-    carries a leading batch axis.  ``table``: a prebuilt horizon table
-    (:func:`static_horizon_table`), built here when omitted."""
-    if not sim.static_grid:
-        raise NotImplementedError("only the static-grid rollout is ported")
+    carries a leading batch axis.
+
+    ``sim.static_grid=True``: ``table`` is a prebuilt horizon table
+    (:func:`static_horizon_table`).  ``False``: the corridor is re-extracted
+    from ``grid`` every step, and ``table`` is a prebuilt
+    :class:`~.ops.corridor_extract.ScanlineTable`.  Either is built here
+    when omitted.  ``weights``: a per-lane :class:`~.mpc.WeightSet` (leaves
+    with a leading batch axis), a controller-tuning sweep."""
+    _validate_weights(weights, state0)
+    if sim.static_grid:
+        if table is None:
+            table = static_horizon_table(grid, path, cfg, model)
+        step = lambda st: _post_control(
+            mpc_step_batched(st, path, cfg, model, table, weights=weights),
+            path, model)
+        return _rollout(step, state0, sim.max_steps)
     if table is None:
-        table = static_horizon_table(grid, path, cfg, model)
+        table = build_scanline_table(grid, path, cfg.n_scan_samples)
+    return _simulate_fleet_dynamic(grid, path, cfg, model, sim, state0, table,
+                                   weights)
+
+
+def _rollout(sim_step, state0: CarState, steps: int) -> SimResult:
+    """``steps`` applications of ``sim_step: state -> (state, log)``."""
     state, logs = state0, []
-    for _ in range(sim.max_steps):
-        out = mpc_step_batched(state, path, cfg, model, table)
-        state, log = _post_control(out, path, model)
+    for _ in range(steps):
+        state, log = sim_step(state)
         logs.append(log)
     return SimResult(final_state=state,
                      log=SimLog(*(torch.stack(f) for f in zip(*logs))))
+
+
+def _validate_weights(weights: Optional[WeightSet], state0: CarState) -> None:
+    """Fail fast on a mis-batched WeightSet: every non-None leaf needs a
+    leading fleet axis matching the state batch."""
+    if weights is None:
+        return
+    B = state0.batch
+    for name, leaf, width in (("Q", weights.Q, 3), ("R", weights.R, 2),
+                              ("QN", weights.QN, 3)):
+        if leaf is None:
+            continue
+        if leaf.dim() != 2 or leaf.shape[0] != B or leaf.shape[1] != width:
+            raise ValueError(
+                f"WeightSet.{name} must have shape ({B}, {width}) to match "
+                f"the fleet batch; got {tuple(leaf.shape)}")
+
+
+def _simulate_fleet_dynamic(grid: GridMap, path: PathData, cfg: MPCConfig,
+                            model: ModelConfig, sim: SimConfig,
+                            state0: CarState, scan: ScanlineTable,
+                            weights: Optional[WeightSet]) -> SimResult:
+    """Dynamic-grid rollout on ``grid.occ`` (shared (H, W)); the horizon
+    table supplies the pose and solver columns, the segment columns come
+    from each step's extraction."""
+    base = build_horizon_table(
+        path, empty_segments(path.n_wp, cfg.max_segments, path.x.device), cfg)
+    step = lambda st: _sim_step_batched_gridded(st, path, grid.occ, cfg,
+                                                model, scan, base, weights)
+    return _rollout(step, state0, sim.max_steps)
+
+
+def _locate_horizon(state: CarState, path: PathData, cfg: MPCConfig):
+    """Fleet localization + the (B, N) horizon waypoint indices of the
+    corridor stages (from wp_id + 1, like the reference, MPC.py:116)."""
+    located = mpc_locate(state, path)
+    offs = torch.arange(cfg.N, device=located[0].device)
+    idx = gather_waypoint_index(path, located[0].long()[:, None] + 1,
+                                offs[None, :])
+    return located, idx
+
+
+def _dynamic_corridor_batched(state: CarState, path: PathData,
+                              occ: torch.Tensor, scan: ScanlineTable,
+                              table: torch.Tensor, cfg: MPCConfig,
+                              model: ModelConfig):
+    """Fleet localization + dynamic-grid corridor; ``occ`` is per-lane
+    (B, H, W) or shared (H, W).  Returns ``(located, corridor, block)``."""
+    located, idx = _locate_horizon(state, path, cfg)
+    sm = model.safety_margin
+    segs = fleet_dynamic_segments(occ, scan, idx, 2.0 * sm, cfg.max_segments)
+    corridor, blk = _select_corridor_batched(table, located[0], segs, cfg, sm)
+    return located, corridor, blk
+
+
+def _select_corridor_batched(table: torch.Tensor, wp_id: torch.Tensor,
+                             segs: SegmentCandidates, cfg: MPCConfig, sm):
+    """Corridor selection (kernel K2) from per-lane segment candidates,
+    through the horizon block of ``wp_id``.  Returns ``(corridor, block)``."""
+    blk = horizon_block_from_segments(table, wp_id, segs)
+    return corridor_select(blk, cfg.max_segments, sm), blk
+
+
+def _sim_step_batched_gridded(state: CarState, path: PathData,
+                              occ: torch.Tensor, cfg: MPCConfig,
+                              model: ModelConfig, scan: ScanlineTable,
+                              table: torch.Tensor,
+                              weights: Optional[WeightSet] = None):
+    """Fleet step on a per-step occupancy grid, per-lane (B, H, W) or
+    shared (H, W): extraction (K4), selection (K2), the solve (K1, or K3
+    under ``weights``) fed from the same horizon block, then the plant
+    step and logs."""
+    located, corridor, blk = _dynamic_corridor_batched(state, path, occ, scan,
+                                                       table, cfg, model)
+    out = mpc_step_batched_with_corridor(
+        state, cfg, model, located, corridor,
+        solver_inputs_from_block(blk, cfg.max_segments), weights=weights)
+    return _post_control(out, path, model)
 
 
 def simulate_closed_loop(grid: GridMap, path: PathData, cfg: MPCConfig,

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled by
 ``nvcc`` into ``lib<name>.so`` at first use, inside ``_build/<hash>/`` next
-to the sources (listed in ``.gitignore``), where the hash covers the source
-and the flags: an edited source rebuilds, an unchanged one loads.  The
-library is opened with ctypes; the wrapper modules bind argument types.
+to the sources (listed in ``.gitignore``), where the hash covers the source,
+every shared header ``csrc/*.cuh`` and the flags: an edited source or
+header rebuilds, an unchanged one loads.  The library is opened with
+ctypes; the wrapper modules bind argument types.  :func:`build_all` runs
+one ``nvcc`` per source, all at once.
 
 Flags: ``sm_90a`` (Hopper), no ``--use_fast_math`` (the kernels rely on
 IEEE division and square root, on +-inf bounds and on ``isfinite``), and
@@ -14,6 +16,7 @@ PyTorch twins each kernel is held against.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -21,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -45,8 +49,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / key.hexdigest()[:16] / f"lib{name}.so"
 
 
@@ -65,6 +71,19 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
+
+
+def build_all(names) -> dict:
+    """Build several kernels at once (one ``nvcc`` process each); returns
+    ``{name: seconds}``.  Raises the first build error."""
+    def timed(name):
+        t0 = time.perf_counter()
+        build(name)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,20 +10,27 @@ the CPU-side contract of the wrappers and the build.
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from multi_purpose_mpc_tpu_torch.config import sim_track_preset
-from multi_purpose_mpc_tpu_torch.mpc import kappa_predictions, mpc_locate
-from multi_purpose_mpc_tpu_torch.ops import admm_cuda, corridor_cuda
+from multi_purpose_mpc_tpu_torch.config import SimConfig, sim_track_preset
+from multi_purpose_mpc_tpu_torch.mpc import (WeightSet, kappa_predictions,
+                                             mpc_locate, mpc_pre_solve)
+from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
+                                             corridor_extract)
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     gather_horizon_block, solver_inputs_from_block)
-from multi_purpose_mpc_tpu_torch.ops.ltv_qp import init_solver_carry
+from multi_purpose_mpc_tpu_torch.ops.ltv_qp import (StageQP,
+                                                    init_solver_carry,
+                                                    pack_qp)
 from multi_purpose_mpc_tpu_torch.ops.path import build_reference_path
 from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
-from multi_purpose_mpc_tpu_torch.simulation import (init_fleet,
+from multi_purpose_mpc_tpu_torch.simulation import (_locate_horizon,
+                                                    init_fleet,
+                                                    simulate_fleet,
                                                     static_horizon_table)
 from multi_purpose_mpc_tpu_torch.utils import kernels
 from multi_purpose_mpc_tpu_torch.utils.maps import (add_obstacles_host,
@@ -51,8 +58,8 @@ def _scenario(device, B=256, seed=0):
                             device=device))
     wp, e_y, e_psi = mpc_locate(fleet, path)
     blk = gather_horizon_block(table, wp)
-    return dict(path=path, table=table, fleet=fleet, blk=blk, e_y=e_y,
-                e_psi=e_psi, model=model, cfg=cfg)
+    return dict(grid=grid, path=path, table=table, fleet=fleet, blk=blk,
+                e_y=e_y, e_psi=e_psi, model=model, cfg=cfg)
 
 
 def _k1_args(sc, corridor):
@@ -70,12 +77,23 @@ def cuda_sc():
     return _scenario(torch.device("cuda:0"))
 
 
-def test_library_path_is_keyed_by_source():
+def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     p = kernels.library_path("admm_fused")
     assert p.parent.parent == kernels.BUILD_DIR and p.name == "libadmm_fused.so"
     assert len(p.parent.name) == 16
     assert kernels.library_path("admm_fused") == p
     assert kernels.library_path("corridor_select").parent != p.parent
+    # an edited shared header changes the key of every kernel built with it
+    src = tmp_path / "csrc"
+    shutil.copytree(kernels.SRC_DIR, src)
+    monkeypatch.setattr(kernels, "SRC_DIR", src)
+    before = {n: kernels.library_path(n)
+              for n in ("admm_fused", "admm_structured")}
+    assert before["admm_fused"] == p
+    with open(src / "admm_core.cuh", "a") as f:
+        f.write("// edited\n")
+    for name, path in before.items():
+        assert kernels.library_path(name) != path, name
 
 
 def test_launch_check_raises():
@@ -94,6 +112,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             z, z, z, z, z, torch.zeros((2, 3)), z, init_solver_carry(30, 2),
             sim_track_preset()[3].solver, sim_track_preset()[3],
             sim_track_preset()[2])
+    sq = StageQP(AB=torch.zeros((2, 30, 3, 5)),
+                 beq=torch.zeros((2, 31, 3)), Pd=torch.zeros((2, 31, 5)),
+                 qv=torch.zeros((2, 31, 5)), lw=torch.zeros((2, 31, 5)),
+                 uw=torch.zeros((2, 31, 5)))
+    with pytest.raises(ValueError):
+        admm_cuda.solve_ltv_qp_structured_cuda(sq, init_solver_carry(30, 2),
+                                               sim_track_preset()[3].solver)
+    pxy = torch.zeros((2, 30, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        corridor_extract.extract_occ_cuda(torch.ones((500, 500)), pxy, pxy)
 
 
 @pytest.mark.cuda
@@ -143,3 +171,72 @@ def test_cuda_wrappers_validate_inputs(cuda_sc):
     args[5] = args[5].t().contiguous().t()  # x0 not contiguous
     with pytest.raises(ValueError):
         admm_cuda.solve_mpc_qp_fused_cuda(*args)
+
+
+def _sweep_qps(sc):
+    """Per-lane weighted QPs (random weight rows) for the scenario's lanes."""
+    cfg, model, fleet = sc["cfg"], sc["model"], sc["fleet"]
+    B, dev = fleet.batch, sc["blk"].device
+    rng = np.random.default_rng(1)
+    Q = torch.tensor(rng.uniform(0.5, 2.0, (B, 3)) * [1.0, 0.1, 0.0],
+                     dtype=torch.float32, device=dev)
+    R = torch.tensor(rng.uniform(0.01, 0.5, (B, 2)), dtype=torch.float32,
+                     device=dev)
+    S, sm = cfg.max_segments, model.safety_margin
+    cor = corridor_cuda.corridor_select_cuda(sc["blk"], S, sm)
+    qp, _ = mpc_pre_solve(fleet, cfg, model, mpc_locate(fleet, sc["path"]),
+                          cor, solver_inputs_from_block(sc["blk"], S),
+                          WeightSet(Q=Q, R=R, QN=Q.clone()))
+    return pack_qp(qp)
+
+
+@pytest.mark.cuda
+def test_k3_kernel_matches_plain(cuda_sc):
+    """K3 against its plain version at K1's bars (in practice bitwise)."""
+    sq = _sweep_qps(cuda_sc)
+    warm, cfg = cuda_sc["fleet"].solver, cuda_sc["cfg"].solver
+    raw_k = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, cfg)
+    raw_p = admm_cuda.solve_ltv_qp_structured_plain(sq, warm, cfg)
+    torch.cuda.synchronize()
+    qmax = sq.qv.abs().flatten(1).amax(1)
+    sol_k = admm_cuda.finish_solve(raw_k, qmax, cfg)
+    sol_p = admm_cuda.finish_solve(raw_p, qmax, cfg)
+    assert (sol_k.status == sol_p.status).float().mean() >= 0.995
+    assert float((sol_k.r_prim - sol_p.r_prim).abs().max()) <= 1e-4
+    acc = (sol_k.r_prim <= 5e-3) & (sol_p.r_prim <= 5e-3)
+    assert float((sol_k.U[:, 0] - sol_p.U[:, 0]).abs()[acc].max()) <= 3e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grids", ["shared", "per_lane"])
+def test_k4_kernel_bitwise_equals_plain(cuda_sc, grids):
+    grid, path, cfg = cuda_sc["grid"], cuda_sc["path"], cuda_sc["cfg"]
+    scan = corridor_extract.build_scanline_table(grid, path,
+                                                 cfg.n_scan_samples)
+    _, idx = _locate_horizon(cuda_sc["fleet"], path, cfg)
+    h = corridor_extract.horizon_tables(scan, idx)
+    occ = grid.occ
+    if grids == "per_lane":
+        occ = occ.expand(idx.shape[0], -1, -1).clone()
+        gen = torch.Generator(device=occ.device).manual_seed(0)
+        hit = torch.rand(occ.shape, generator=gen, device=occ.device) < 0.01
+        occ[hit] = 0.0
+    ker = corridor_extract.extract_occ_cuda(occ, h.px, h.py)
+    ref = corridor_extract.extract_occ_gather(occ, h.px, h.py)
+    torch.cuda.synchronize()
+    assert torch.equal(ker, ref)
+
+
+@pytest.mark.cuda
+def test_dynamic_fleet_on_card_equals_static(cuda_sc):
+    """On the card, the dynamic-grid fleet (K4, K2, K1) drives exactly as
+    the static-grid fleet (K2, K1) on the unchanged grid."""
+    kw = dict(grid=cuda_sc["grid"], path=cuda_sc["path"], cfg=cuda_sc["cfg"],
+              model=cuda_sc["model"], state0=cuda_sc["fleet"])
+    n0 = corridor_extract.extract_occ_cuda.launches
+    dyn = simulate_fleet(sim=SimConfig(max_steps=3, static_grid=False), **kw)
+    static = simulate_fleet(sim=SimConfig(max_steps=3), table=cuda_sc["table"],
+                            **kw)
+    assert corridor_extract.extract_occ_cuda.launches == n0 + 3
+    for f in static.log._fields:
+        assert torch.equal(getattr(dyn.log, f), getattr(static.log, f)), f

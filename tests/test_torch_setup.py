@@ -7,6 +7,7 @@ other tests/test_torch_*.py files.
 """
 
 import dataclasses
+import functools
 import math
 import os
 import subprocess
@@ -45,7 +46,13 @@ ASSETS = os.path.join(REPO, "assets", "maps")
 
 def jax_scenario():
     """Sim_Track through the JAX package: grid with obstacles, path with
-    speed profile, static segments, configs."""
+    speed profile, static segments, configs.  Built once per process; each
+    caller gets its own dict."""
+    return dict(_jax_scenario())
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_scenario():
     map_cfg, path_cfg, model_cfg, mpc_cfg, speed_cfg, obstacles = (
         jcfg.sim_track_preset(asset_dir=ASSETS))
     grid = jmaps.load_grid_map(map_cfg)
@@ -88,6 +95,8 @@ def port_setup():
 def test_port_never_imports_jax():
     code = ("import sys, multi_purpose_mpc_tpu_torch, "
             "multi_purpose_mpc_tpu_torch.simulation, "
+            "multi_purpose_mpc_tpu_torch.ops.corridor_extract, "
+            "multi_purpose_mpc_tpu_torch.ops.admm_cuda, "
             "multi_purpose_mpc_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_purpose_mpc_tpu')]; "

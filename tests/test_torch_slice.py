@@ -175,11 +175,18 @@ def test_simulate_closed_loop_single_car(sc):
 
 
 def test_dynamic_grid_is_refused(sc):
+    """The dynamic grid is no longer refused: ``static_grid=False`` runs
+    through ``simulate_fleet`` and, on the unchanged grid, drives exactly
+    as the static grid does (tests/test_torch_dynamic.py holds it to the
+    JAX package)."""
     tmodel, tcfg = port_configs()
-    with pytest.raises(NotImplementedError):
-        tsim.simulate_fleet(sc["tgrid"], sc["tpath"], tcfg, tmodel,
-                            SimConfig(max_steps=1, static_grid=False),
-                            tsim.init_fleet(sc["tpath"], tcfg.N, 1))
+    state0 = tsim.init_fleet(sc["tpath"], tcfg.N, 1)
+    kw = dict(grid=sc["tgrid"], path=sc["tpath"], cfg=tcfg, model=tmodel,
+              state0=state0)
+    dyn = tsim.simulate_fleet(sim=SimConfig(max_steps=2, static_grid=False),
+                              **kw)
+    static = tsim.simulate_fleet(sim=SimConfig(max_steps=2), **kw)
+    assert dyn.log.ok.all() and torch.equal(dyn.log.x, static.log.x)
 
 
 def test_interop_round_trip(sc):
