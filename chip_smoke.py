@@ -3,12 +3,12 @@
     python3 chip_smoke.py
 
 Drives the port's paths — the Sim_Track obstacle-avoidance fleet on a
-static and on a dynamic grid, per-lane weight sweeps, the escalation pass
-and Real_Track; N = 30, S = 8, K = 128, the production solver budget —
-through their public entry points, in phases:
+static and on a dynamic grid, per-lane weight sweeps, the escalation pass,
+Real_Track and LiDAR in the loop; N = 30, S = 8, K = 128, the production
+solver budget — through their public entry points, in phases:
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
-2. build: compiles the four CUDA kernels from
+2. build: compiles the six CUDA kernels from
    ``multi_purpose_mpc_tpu_torch/csrc``, one nvcc per source, in parallel;
 3. K2 (corridor selection) vs its plain twin on the horizon blocks of 4096
    feasible starts: bitwise, or fail above 1e-6;
@@ -38,10 +38,27 @@ through their public entry points, in phases:
     accept rate >= phase 5's over the same steps, and no lane accepted at
     step 0 without escalation is rejected with it;
 12. Real_Track: B = 1024 x 30 steps from bench.py's starts: 0 failed
-    lanes, solver-failure < 2 %.
+    lanes, solver-failure < 2 %;
+13. K5 (map write-back + extraction) vs its plain version, bitwise: the
+    phase-7 lane grids (256, and tiled to 4096) with 91 synthetic beams
+    per lane, 60 % hits, a quarter of them on the lane's scanline samples;
+14. K6 (the same on bit-packed maps) vs its plain version and vs K5,
+    bitwise, on the (4096, 16, 500) packed grids; pad rows stay free;
+15. LiDAR fleet, known map = true map, B = 4096 x 50 steps, bench.py's
+    LiDAR, "auto" backends (cells scan, packed maps): K6 = K2 = K1 = 50
+    launches, K4 = K5 = K3 = 0; the log bitwise equal to phase 9's; the
+    maps stay the true grid; health gates; a CUDA-event step breakdown;
+16. discovery fleet from an all-free known map, B = 1024 x 50 steps, packed
+    then fused maps: cells found per lane, logs and final maps of the two
+    runs bitwise equal, health gates; a step breakdown;
+17. one car, ``simulate_lidar_loop``, 40 steps from an all-free known map:
+    > 200 cells found, s > 1 m, not failed, max |e_y| < 0.25.
 
-Prints a JSON line with each kernel's launches, error and times, the card's
-name and power limit, and as its last line
+Prints a JSON line with each kernel's launches, error, times and bound
+(``bound_ms`` from the bytes each kernel must move and the float32
+operations of its plain version, counted in this run, against the H100
+SXM's 3.35 TB/s and 67 TFLOP/s), the card's name and power limit, and as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises (non-zero exit, no result line).  Imports no JAX.
 """
@@ -74,6 +91,18 @@ ESC_LANES = 128
 ESC_STEPS = 20
 RT_BATCH = 1024
 RT_STEPS = 30
+# phases 13-17: bench.py's LiDAR (360 deg, 1 m, 4 deg per beam: 91 beams,
+# 192 samples per ray) and its batch for the discovery fleet
+LIDAR_B = 1024
+LOOP_STEPS = 40
+# phase 16's bars, set from its first run on the card (0 failed lanes, max
+# |e_y| 0.4344 m; PERF.md section 6).  From an all-free known map the exact
+# corner-span scan marks corner-grazing cells at pinch points, corridors
+# collapse and a lane replays its plan off the centre line: the JAX package
+# drives the worst lane from the same start to 0.41 m with the cells scan
+# and 0.05 m with the march scan (tools/jax_discovery_lanes.py)
+DISC_FAILED_MAX = 0
+DISC_MAX_EY = 0.50
 # weight rows of phase 10 (Q | R | QN): reference tracking and strictly
 # convex (tests/test_sweep.py), time-optimal (config.time_optimal_config)
 SWEEP_ROWS = ("reference", "strictly_convex", "time_optimal")
@@ -104,6 +133,84 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet): HBM3
+# bandwidth and float32 outside the tensor cores, at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# aten ops counted by count_ops: one operation per output element for the
+# elementwise ones, per input element for the reductions
+_ELEMENTWISE = frozenset("""abs add sub rsub mul div neg sqrt rsqrt reciprocal
+    maximum minimum clamp clamp_min clamp_max where sign lt le gt ge eq ne
+    logical_and logical_or logical_not logical_xor bitwise_and bitwise_or
+    bitwise_xor bitwise_not bitwise_left_shift bitwise_right_shift
+    __and__ __or__ __xor__ __lshift__ __rshift__ floor ceil trunc round exp
+    log pow square sin cos atan2 hypot isfinite isnan isinf fmod remainder
+    floor_divide addcmul addcdiv lerp copysign""".split())
+_REDUCTIONS = frozenset("""sum mean amax amin max min prod cumsum cumprod any
+    all argmax argmin""".split())
+
+
+def count_ops(fn) -> int:
+    """Arithmetic operations of ``fn()``, counted from the aten ops it
+    dispatches (memory movement — copies, indexing, cat — counts none).
+    Run on a kernel's plain version: each kernel repeats its plain version's
+    arithmetic, operation for operation."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in _ELEMENTWISE:
+                first = out[0] if isinstance(out, (tuple, list)) else out
+                Counter.ops += first.numel()
+            elif name in _REDUCTIONS:
+                Counter.ops += args[0].numel()
+            return out
+
+    with Counter():
+        fn()
+    torch.cuda.synchronize()
+    return Counter.ops
+
+
+def nbytes(*objs) -> int:
+    """Bytes of every distinct tensor in ``objs`` (through tuples, lists,
+    named tuples and dataclasses): each input read once, each output
+    written once."""
+    seen, total = set(), 0
+
+    def walk(o):
+        nonlocal total
+        if isinstance(o, torch.Tensor):
+            key = (o.data_ptr(), o.numel(), o.dtype)
+            if key not in seen:
+                seen.add(key)
+                total += o.numel() * o.element_size()
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+        elif isinstance(o, (tuple, list)):
+            for v in o:
+                walk(v)
+
+    for o in objs:
+        walk(o)
+    return total
+
+
+def bound(bytes_: int, ops: int):
+    """``(bound_ms, bound_by)``: the least time the card could take, the
+    larger of the bytes over the memory rate and the operations over the
+    float32 rate."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def lane_grids(grid, path, lanes: int, seed: int):
@@ -149,6 +256,39 @@ def health(log, final_state, path, model, steps, lanes=None):
         max_ey=float(log.e_y[active].abs().max()))
 
 
+def same_log(log, ref, label, fields=("x", "y", "v", "ok", "floor")):
+    """Raise unless ``log`` equals ``ref`` bit for bit in ``fields`` (NaN
+    equal to NaN)."""
+    for f in fields:
+        a, b = getattr(log, f), getattr(ref, f)
+        diff = (a != b) & ~(torch.isnan(a.float()) & torch.isnan(b.float()))
+        if diff.any():
+            t, lane = (int(i) for i in diff.nonzero()[0])
+            raise AssertionError(
+                f"{label}: log.{f} differs, first at step {t}, lane {lane}: "
+                f"{float(a[t, lane])} vs {float(b[t, lane])}")
+
+
+def synthetic_hits(occ, px, py, nb: int, seed: int):
+    """(hpx, hpy, hit), (B, nb) each: 60 % hits on random cells of the
+    (B, H, W) grids, and a quarter of the beams on the lane's own scanline
+    samples (px, py (B, N, K)), so that an extraction reading the grid
+    before the write-back would differ."""
+    Bsz, H, W = occ.shape
+    gen = torch.Generator(device=occ.device).manual_seed(seed)
+    r = lambda hi: torch.randint(0, hi, (Bsz, nb), generator=gen,
+                                 device=occ.device, dtype=torch.int32)
+    hpx, hpy = r(W), r(H)
+    hit = torch.rand((Bsz, nb), generator=gen, device=occ.device) < 0.6
+    on = nb // 4
+    flat = torch.randint(0, px.shape[1] * px.shape[2], (Bsz, on),
+                         generator=gen, device=occ.device)
+    hpx[:, :on] = px.flatten(1).gather(1, flat)
+    hpy[:, :on] = py.flatten(1).gather(1, flat)
+    hit[:, :on] = True
+    return hpx, hpy, hit
+
+
 def check_health(h, label):
     if h["failed"] != 0 or h["solver_fail"] >= 0.02 \
             or h["progress"] <= h["exp_progress"] or h["max_ey"] >= 0.30:
@@ -176,37 +316,51 @@ def main():
           f"{torch.version.cuda}  nvidia-smi: {card}", flush=True)
 
     from multi_purpose_mpc_tpu_torch.config import (
-        SimConfig, real_track_preset, sim_track_preset, time_optimal_config)
+        LidarConfig, SimConfig, real_track_preset, sim_track_preset,
+        time_optimal_config)
     from multi_purpose_mpc_tpu_torch.models.bicycle import init_car_state
     from multi_purpose_mpc_tpu_torch.mpc import (
-        WeightSet, kappa_predictions, mpc_locate, mpc_pre_solve)
+        WeightSet, kappa_predictions, mpc_locate, mpc_pre_solve,
+        mpc_step_batched_with_corridor)
     from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
-                                                 corridor_extract)
+                                                 corridor_extract, mapping)
+    from multi_purpose_mpc_tpu_torch.ops.corridor_extract import horizon_segments
     from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
-        gather_horizon_block, solver_inputs_from_block)
+        build_horizon_table, empty_segments, gather_horizon_block,
+        solver_inputs_from_block)
+    from multi_purpose_mpc_tpu_torch.ops.lidar import hit_pixels, scan_fleet
     from multi_purpose_mpc_tpu_torch.ops.ltv_qp import pack_qp
     from multi_purpose_mpc_tpu_torch.ops.path import build_reference_path
     from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
     from multi_purpose_mpc_tpu_torch.simulation import (
-        _locate_horizon, feasible_starts, init_fleet, simulate_closed_loop,
-        simulate_fleet, static_horizon_table)
+        _locate_horizon, _post_control, _select_corridor_batched,
+        feasible_starts, init_fleet, resolve_cell_table,
+        simulate_closed_loop, simulate_fleet, simulate_lidar_fleet,
+        simulate_lidar_loop, static_horizon_table)
     from multi_purpose_mpc_tpu_torch.utils import kernels
     from multi_purpose_mpc_tpu_torch.utils.maps import (
         add_obstacles_host, load_grid_map)
 
     # ---- phase 2: build ----
-    names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ")
+    names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ",
+             "writeback_extract", "writeback_extract_packed")
     t0 = time.perf_counter()
     for name, sec in kernels.build_all(names).items():
         kernels.load(name)
         print(f"[build] {name}.cu -> {kernels.library_path(name)} in "
               f"{sec:.2f} s", flush=True)
-    print(f"[build] all four in {time.perf_counter() - t0:.2f} s wall",
+    print(f"[build] all six in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
     counted = {"admm_fused": admm_cuda.solve_mpc_qp_fused_cuda,
                "corridor_select": corridor_cuda.corridor_select_cuda,
                "admm_structured": admm_cuda.solve_ltv_qp_structured_cuda,
-               "extract_occ": corridor_extract.extract_occ_cuda}
+               "extract_occ": corridor_extract.extract_occ_cuda,
+               "writeback_extract": mapping.writeback_extract_cuda,
+               "writeback_extract_packed": mapping.writeback_extract_packed_cuda}
+
+    def expect(**launches):
+        """The launch counts of a path: the named kernels, 0 for the rest."""
+        return {name: launches.get(name, 0) for name in counted}
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -251,6 +405,9 @@ def main():
           f"twin {k2_plain_ms:.3f} ms ({card})", flush=True)
     if k2_err > K2_TOL:
         raise AssertionError(f"K2 disagrees with its twin: {k2_err:.3e} > {K2_TOL}")
+    k2_bound = bound(nbytes(blk, ker), count_ops(
+        lambda: corridor_cuda.corridor_select_plain(blk, S, sm)))
+    print(f"[K2] bound {k2_bound[0]:.5f} ms ({k2_bound[1]})", flush=True)
 
     # ---- phase 4: K1 vs twin ----
     def k1_inputs(state):
@@ -302,8 +459,12 @@ def main():
                                   k1_inputs(warm)))
     k1_ms = cuda_ms(lambda: admm_cuda.solve_mpc_qp_fused_cuda(*args_first), 3)
     k1_plain_ms = cuda_ms(lambda: admm_cuda.solve_mpc_qp_fused_plain(*args_first), 1)
-    print(f"[K1] kernel {k1_ms:.3f} ms, twin {k1_plain_ms:.1f} ms at B={B}, "
-          f"N={cfg.N} ({card})", flush=True)
+    k1_bound = bound(
+        nbytes(args_first, admm_cuda.solve_mpc_qp_fused_cuda(*args_first)),
+        count_ops(lambda: admm_cuda.solve_mpc_qp_fused_plain(*args_first)))
+    print(f"[K1] kernel {k1_ms:.3f} ms, twin {k1_plain_ms:.1f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) at B={B}, N={cfg.N} ({card})",
+          flush=True)
 
     # ---- phase 5: main path ----
     reset_counts()
@@ -315,8 +476,7 @@ def main():
     launches = read_counts()
     print(f"[main] simulate_fleet B={B} x {STEPS} steps: launches {launches}",
           flush=True)
-    if launches != {"admm_fused": STEPS, "corridor_select": STEPS,
-                    "admm_structured": 0, "extract_occ": 0}:
+    if launches != expect(admm_fused=STEPS, corridor_select=STEPS):
         raise AssertionError(f"main path launches {launches}")
     static_log = res.log
     h = health(res.log, res.final_state, path, model, STEPS)
@@ -344,10 +504,10 @@ def main():
     _, idx = _locate_horizon(fleet, path, cfg)
     hz = corridor_extract.horizon_tables(scan, idx)
     k4_err = 0.0
+    lanes256 = lane_grids(grid, path, K4_LANE_GRIDS, SEED)
     for label, occ, px, py in (
             ("shared grid", grid.occ, hz.px, hz.py),
-            ("per-lane grids", lane_grids(grid, path, K4_LANE_GRIDS, SEED),
-             hz.px[:K4_LANE_GRIDS].contiguous(),
+            ("per-lane grids", lanes256, hz.px[:K4_LANE_GRIDS].contiguous(),
              hz.py[:K4_LANE_GRIDS].contiguous())):
         ker = corridor_extract.extract_occ_cuda(occ, px, py)
         ref = corridor_extract.extract_occ_gather(occ, px, py)
@@ -365,8 +525,14 @@ def main():
         grid.occ, hz.px, hz.py), 50)
     k4_plain_ms = cuda_ms(lambda: corridor_extract.extract_occ_gather(
         grid.occ, hz.px, hz.py), 50)
-    print(f"[K4] kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms at "
-          f"{tuple(hz.px.shape)} on the shared grid ({card})", flush=True)
+    k4_lib_ms = cuda_ms(lambda: grid.occ[hz.py, hz.px], 50)
+    k4_bound = bound(nbytes(grid.occ, hz.px, hz.py) + 4 * hz.px.numel(),
+                     count_ops(lambda: corridor_extract.extract_occ_gather(
+                         grid.occ, hz.px, hz.py)))
+    print(f"[K4] kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, one "
+          f"indexing call occ[py, px] {k4_lib_ms:.4f} ms, bound "
+          f"{k4_bound[0]:.4f} ms ({k4_bound[1]}) at {tuple(hz.px.shape)} on "
+          f"the shared grid ({card})", flush=True)
 
     # ---- phase 8: K3 vs plain ----
     rows = {"reference": (cfg.Q, cfg.R, cfg.QN),
@@ -417,8 +583,14 @@ def main():
         sq_first, warm_first, cfg.solver), 3)
     k3_plain_ms = cuda_ms(lambda: admm_cuda.solve_ltv_qp_structured_plain(
         sq_first, warm_first, cfg.solver), 1)
-    print(f"[K3] kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms at B={B}, "
-          f"N={cfg.N} ({card})", flush=True)
+    k3_bound = bound(
+        nbytes(sq_first, warm_first, admm_cuda.solve_ltv_qp_structured_cuda(
+            sq_first, warm_first, cfg.solver)),
+        count_ops(lambda: admm_cuda.solve_ltv_qp_structured_plain(
+            sq_first, warm_first, cfg.solver)))
+    print(f"[K3] kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms, bound "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) at B={B}, N={cfg.N} ({card})",
+          flush=True)
 
     # ---- phase 9: dynamic grid ----
     dyn_sim = SimConfig(max_steps=STEPS, static_grid=False)
@@ -430,17 +602,10 @@ def main():
     dyn_launches = read_counts()
     print(f"[dynamic] simulate_fleet(static_grid=False) B={B} x {STEPS} "
           f"steps: launches {dyn_launches}", flush=True)
-    if dyn_launches != {"admm_fused": STEPS, "corridor_select": STEPS,
-                        "admm_structured": 0, "extract_occ": STEPS}:
+    if dyn_launches != expect(admm_fused=STEPS, corridor_select=STEPS,
+                              extract_occ=STEPS):
         raise AssertionError(f"dynamic path launches {dyn_launches}")
-    for f in ("x", "y", "v", "ok", "floor"):
-        a, b = getattr(dyn.log, f), getattr(static_log, f)
-        diff = (a != b) & ~(torch.isnan(a.float()) & torch.isnan(b.float()))
-        if diff.any():
-            t, lane = (int(i) for i in diff.nonzero()[0])
-            raise AssertionError(
-                f"dynamic log.{f} differs from the static one, first at step "
-                f"{t}, lane {lane}: {float(a[t, lane])} vs {float(b[t, lane])}")
+    same_log(dyn.log, static_log, "dynamic grid vs static grid")
     h = health(dyn.log, dyn.final_state, path, model, STEPS)
     print(f"[dynamic] log (x, y, v, ok, floor) bitwise equal to the static "
           f"grid's; {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
@@ -457,8 +622,8 @@ def main():
     sweep_launches = read_counts()
     print(f"[sweep] dynamic grid, WeightSet rows {SWEEP_ROWS} tiled over "
           f"B={B} x {STEPS} steps: launches {sweep_launches}", flush=True)
-    if sweep_launches != {"admm_fused": 0, "corridor_select": STEPS,
-                          "admm_structured": STEPS, "extract_occ": STEPS}:
+    if sweep_launches != expect(corridor_select=STEPS, admm_structured=STEPS,
+                                extract_occ=STEPS):
         raise AssertionError(f"sweep path launches {sweep_launches}")
     for i, name in enumerate(SWEEP_ROWS):
         lanes = row_of == i
@@ -532,27 +697,247 @@ def main():
     if h["failed"] != 0 or h["solver_fail"] >= 0.02:
         raise AssertionError("Real_Track health gates failed")
 
+    # ---- phases 13-17: LiDAR in the loop ----
+    lidar = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=192)
+    base = build_horizon_table(path, empty_segments(path.n_wp, S, dev), cfg)
+
+    def breakdown(label, state, cells, step_ms):
+        """CUDA-event times of the parts of one packed LiDAR step from
+        ``state`` on the true map, against the rollout's wall per step."""
+        pk = mapping.pack_rows(grid.occ).expand(state.batch, -1, -1).contiguous()
+        parts = {}
+
+        def part(name, fn, reps=3):
+            parts[name] = cuda_ms(fn, reps)
+            return fn()
+
+        located, idx = part("locate", lambda: _locate_horizon(state, path, cfg))
+        h = corridor_extract.horizon_tables(scan, idx)
+        scans = part("scan (cells)", lambda: scan_fleet(
+            grid, state.x, state.y, state.psi, lidar, cells=cells,
+            wp_id=state.wp_id))
+        hpx, hpy = hit_pixels(grid, scans, grid.height, grid.width)
+        _, vals = part("K6", lambda: mapping.writeback_extract_packed_cuda(
+            pk, hpx, hpy, scans.hit, h.px, h.py))
+        segs = part("free runs", lambda: horizon_segments(vals, h, 2.0 * sm, S))
+        corridor, blk = part("block + K2", lambda: _select_corridor_batched(
+            base, located[0], segs, cfg, sm))
+        out = part("solve (K1 + accept)", lambda: mpc_step_batched_with_corridor(
+            state, cfg, model, located, corridor,
+            solver_inputs_from_block(blk, S)), reps=1)
+        part("plant + log", lambda: _post_control(out, path, model))
+        rest = step_ms - sum(parts.values())
+        print(f"[breakdown] LiDAR step at {label}, ms per step (CUDA events, "
+              f"{card}): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f"; wall {step_ms:.3f}, rest (host gaps, idle) {rest:.3f}",
+              flush=True)
+
+    # ---- phase 13: K5 vs plain ----
+    nb = lidar.n_beams
+    px_all, py_all = hz.px, hz.py  # the fleet's (B, N, K) horizon samples
+    stack = lanes256.repeat(B // K4_LANE_GRIDS, 1, 1)  # (B, H, W) lane grids
+    hits = synthetic_hits(stack, px_all, py_all, nb, SEED)
+    k56_err = 0.0
+
+    def lanes_of(n):
+        return [t[:n].contiguous() for t in (hits + (px_all, py_all))]
+
+    for n in (K4_LANE_GRIDS, B):
+        args = lanes_of(n)
+        ker = mapping.writeback_extract_cuda(stack[:n], *args)
+        ref = mapping.writeback_extract_plain(stack[:n], *args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(ker, ref))
+        stale = int((ker[1] != corridor_extract.extract_occ_gather(
+            stack[:n], args[3], args[4])).sum())
+        k56_err = max(k56_err, max(float((a - b).abs().max())
+                                   for a, b in zip(ker, ref)))
+        print(f"[K5] writeback_extract vs plain, ({n}, {grid.height}, "
+              f"{grid.width}) lane grids, {nb} beams per lane: bitwise="
+              f"{bitwise}; samples changed by the step's own hits: {stale}",
+              flush=True)
+        if not bitwise or stale == 0:
+            raise AssertionError(f"K5 differs from its plain version ({n})")
+    k5_times = {}
+    for n in (K4_LANE_GRIDS, LIDAR_B, B):
+        args = lanes_of(n)
+        k5_times[n] = (
+            cuda_ms(lambda: mapping.writeback_extract_cuda(stack[:n], *args), 20),
+            cuda_ms(lambda: mapping.writeback_extract_plain(stack[:n], *args), 5))
+    args = lanes_of(LIDAR_B)
+    k5_bound = bound(
+        nbytes(stack[:LIDAR_B], args,
+               mapping.writeback_extract_cuda(stack[:LIDAR_B], *args)),
+        count_ops(lambda: mapping.writeback_extract_plain(stack[:LIDAR_B],
+                                                          *args)))
+    k5_ms, k5_plain_ms = k5_times[LIDAR_B]
+    print("[K5] " + ", ".join(f"B={n}: kernel {k:.4f} ms, plain {p:.4f} ms"
+                              for n, (k, p) in k5_times.items())
+          + f"; bound at B={LIDAR_B} {k5_bound[0]:.4f} ms ({k5_bound[1]}) "
+          f"({card})", flush=True)
+
+    # ---- phase 14: K6 vs plain and vs K5 ----
+    packed = mapping.pack_rows(stack)
+    args = lanes_of(B)
+    ker6 = mapping.writeback_extract_packed_cuda(packed, *args)
+    ref6 = mapping.writeback_extract_packed_plain(packed, *args)
+    ker5 = mapping.writeback_extract_cuda(stack, *args)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(ker6, ref6))
+    vs_k5 = (torch.equal(mapping.unpack_rows(ker6[0], grid.height), ker5[0])
+             and torch.equal(ker6[1], ker5[1]))
+    pad_free = bool((mapping.unpack_rows(ker6[0], packed.shape[1] * 32)
+                     [:, grid.height:] == 1.0).all())
+    k56_err = max(k56_err, float((ker6[1] - ref6[1]).abs().max()))
+    print(f"[K6] writeback_extract_packed vs plain on {tuple(packed.shape)} "
+          f"packed grids: bitwise={bitwise}; equal to K5={vs_k5}; pad rows "
+          f"free={pad_free}", flush=True)
+    if not (bitwise and vs_k5 and pad_free):
+        raise AssertionError("K6 differs from its plain version or from K5")
+    del ker5, ker6, ref6
+    k6_times = {}
+    for n in (LIDAR_B, B):
+        a6 = lanes_of(n)
+        pk = packed[:n].contiguous()
+        k6_times[n] = (
+            cuda_ms(lambda: mapping.writeback_extract_packed_cuda(pk, *a6), 50),
+            cuda_ms(lambda: mapping.writeback_extract_packed_plain(pk, *a6), 3))
+    k6_bound = bound(
+        nbytes(packed, args,
+               mapping.writeback_extract_packed_cuda(packed, *args)),
+        count_ops(lambda: mapping.writeback_extract_packed_plain(packed,
+                                                                 *args)))
+    k6_ms, k6_plain_ms = k6_times[B]
+    print("[K6] " + ", ".join(f"B={n}: kernel {k:.4f} ms, plain {p:.4f} ms"
+                              for n, (k, p) in k6_times.items())
+          + f"; bound at B={B} {k6_bound[0]:.4f} ms ({k6_bound[1]}) ({card})",
+          flush=True)
+    del stack, packed, args, hits
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: LiDAR fleet, known map = true map ----
+    t0 = time.perf_counter()
+    cells = resolve_cell_table(grid, path, lidar, None, "cells")
+    torch.cuda.synchronize()
+    print(f"[lidar] cell table {tuple(cells.shape)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    lidar_kw = dict(table=scan, cells=cells)
+    reset_counts()
+    t0 = time.perf_counter()
+    lres, locc = simulate_lidar_fleet(grid, grid, path, cfg, model, dyn_sim,
+                                      lidar, fleet, **lidar_kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lidar_launches = read_counts()
+    print(f"[lidar] simulate_lidar_fleet known = true, B={B} x {STEPS} steps "
+          f"(cells scan, packed maps): launches {lidar_launches}", flush=True)
+    if lidar_launches != expect(admm_fused=STEPS, corridor_select=STEPS,
+                                writeback_extract_packed=STEPS):
+        raise AssertionError(f"LiDAR fleet launches {lidar_launches}")
+    same_log(lres.log, dyn.log, "LiDAR fleet (known = true)")
+    if not torch.equal(locc, grid.occ.expand_as(locc)):
+        raise AssertionError("scans of the true world changed the true map")
+    h = health(lres.log, lres.final_state, path, model, STEPS)
+    print(f"[lidar] log (x, y, v, ok, floor) bitwise equal to the dynamic "
+          f"grid's, maps unchanged; {B * STEPS / dt:.1f} car-steps/s "
+          f"({dt:.3f} s wall), {fmt_health(h)} on {card}", flush=True)
+    check_health(h, "LiDAR fleet")
+    del lres, locc
+    breakdown(f"B={B}", fleet, cells, dt / STEPS * 1e3)
+
+    # ---- phase 16: discovery fleet from an all-free known map ----
+    free = dataclasses.replace(grid, occ=torch.ones_like(grid.occ))
+    fleet16 = init_fleet(path, cfg.N, LIDAR_B, e_y0=ey0[:LIDAR_B],
+                         wp_id0=wp0[:LIDAR_B])
+    disc, disc_launches, disc_ms = {}, {}, None
+    for wb in ("packed", "fused"):
+        reset_counts()
+        t0 = time.perf_counter()
+        disc[wb] = simulate_lidar_fleet(grid, free, path, cfg, model, dyn_sim,
+                                        lidar, fleet16, writeback_backend=wb,
+                                        **lidar_kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_counts()
+        kernel = "writeback_extract_packed" if wb == "packed" else "writeback_extract"
+        if got != expect(admm_fused=STEPS, corridor_select=STEPS,
+                         **{kernel: STEPS}):
+            raise AssertionError(f"discovery fleet ({wb}) launches {got}")
+        disc_launches[wb] = got
+        disc_ms = disc_ms if wb == "fused" else dt / STEPS * 1e3
+        res16, occ16 = disc[wb]
+        found = (occ16 < 0.5).flatten(1).sum(1)
+        h = health(res16.log, res16.final_state, path, model, STEPS)
+        lane_ey = torch.where(res16.log.active, res16.log.e_y.abs(),
+                              torch.zeros_like(res16.log.e_y)).amax(0)
+        worst = int(lane_ey.argmax())
+        print(f"[discovery] {wb} maps, B={LIDAR_B} x {STEPS} steps from an "
+              f"all-free known map: launches {got}; cells found per lane min "
+              f"{int(found.min())}, mean {float(found.float().mean()):.1f}; "
+              f"{LIDAR_B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+              f"{fmt_health(h)}; lanes with max|e_y| >= 0.30: "
+              f"{int((lane_ey >= 0.30).sum())}, worst lane {worst} (start "
+              f"waypoint {int(wp0[worst])}, e_y0 {float(ey0[worst])!r}) on "
+              f"{card}", flush=True)
+        if h["solver_fail"] >= 0.02 or h["progress"] <= h["exp_progress"] \
+                or h["failed"] > DISC_FAILED_MAX \
+                or h["max_ey"] >= DISC_MAX_EY or int(found.min()) == 0:
+            raise AssertionError(f"discovery fleet ({wb}) health gates: {h}")
+    same_log(disc["fused"][0].log, disc["packed"][0].log,
+             "discovery fleet, fused vs packed", disc["packed"][0].log._fields)
+    if not torch.equal(disc["fused"][1], disc["packed"][1]):
+        raise AssertionError("fused and packed discovery maps differ")
+    print("[discovery] fused and packed runs: logs and final maps bitwise "
+          "equal", flush=True)
+    breakdown(f"B={LIDAR_B}", fleet16, cells, disc_ms)
+    del disc
+
+    # ---- phase 17: single car, LiDAR in the loop ----
+    t0 = time.perf_counter()
+    loop, known = simulate_lidar_loop(grid, free, path, cfg, model,
+                                      SimConfig(max_steps=LOOP_STEPS), lidar,
+                                      state0=init_car_state(path, cfg.N),
+                                      table=scan)
+    torch.cuda.synchronize()
+    n_found = int((free.occ - known.occ).sum())
+    s_end = float(loop.final_state.s[0])
+    max_ey = float(loop.log.e_y.abs().max())
+    failed = bool(loop.final_state.failed[0])
+    print(f"[lidar loop] one car, {LOOP_STEPS} steps from an all-free known "
+          f"map: {n_found} cells found, s {s_end:.3f} m, failed {failed}, "
+          f"max|e_y| {max_ey:.4f}, {time.perf_counter() - t0:.2f} s wall",
+          flush=True)
+    if n_found <= 200 or s_end <= 1.0 or failed or max_ey >= 0.25:
+        raise AssertionError("single-car LiDAR loop gates failed")
+
+    def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"multi_purpose_mpc_tpu_torch/csrc/{name}.cu",
+                "replaces": f"multi_purpose_mpc_tpu/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    # library_ms: one PyTorch call computing the same function exists only
+    # for K4 (advanced indexing); none solves the QPs, selects corridors or
+    # writes and reads a map in one call
     print(json.dumps({"kernels": [
-        {"name": "corridor_select", "route": "cuda",
-         "source": "multi_purpose_mpc_tpu_torch/csrc/corridor_select.cu",
-         "replaces": "multi_purpose_mpc_tpu/ops/corridor_pallas.py:38",
-         "launches": launches["corridor_select"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "admm_fused", "route": "cuda",
-         "source": "multi_purpose_mpc_tpu_torch/csrc/admm_fused.cu",
-         "replaces": "multi_purpose_mpc_tpu/ops/admm_pallas.py:271",
-         "launches": launches["admm_fused"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "admm_structured", "route": "cuda",
-         "source": "multi_purpose_mpc_tpu_torch/csrc/admm_structured.cu",
-         "replaces": "multi_purpose_mpc_tpu/ops/admm_pallas.py:1001",
-         "launches": sweep_launches["admm_structured"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "extract_occ", "route": "cuda",
-         "source": "multi_purpose_mpc_tpu_torch/csrc/extract_occ.cu",
-         "replaces": "multi_purpose_mpc_tpu/ops/corridor_extract.py:210",
-         "launches": dyn_launches["extract_occ"], "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+        row("corridor_select", "ops/corridor_pallas.py:38",
+            launches["corridor_select"], k2_err, k2_ms, k2_plain_ms, k2_bound),
+        row("admm_fused", "ops/admm_pallas.py:271", launches["admm_fused"],
+            k1_err, k1_ms, k1_plain_ms, k1_bound),
+        row("admm_structured", "ops/admm_pallas.py:1001",
+            sweep_launches["admm_structured"], k3_err, k3_ms, k3_plain_ms,
+            k3_bound),
+        row("extract_occ", "ops/corridor_extract.py:210",
+            dyn_launches["extract_occ"], k4_err, k4_ms, k4_plain_ms, k4_bound,
+            k4_lib_ms),
+        row("writeback_extract", "ops/mapping_pallas.py:41",
+            disc_launches["fused"]["writeback_extract"], k56_err, k5_ms,
+            k5_plain_ms, k5_bound),
+        row("writeback_extract_packed", "ops/mapping_pallas.py:169",
+            lidar_launches["writeback_extract_packed"], k56_err, k6_ms,
+            k6_plain_ms, k6_bound),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

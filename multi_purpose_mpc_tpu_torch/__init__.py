@@ -7,23 +7,29 @@ the reference this port is held against; this package imports torch,
 numpy, scipy and PIL, never jax.
 
 Ported so far: the static-grid fleet main path, the dynamic-grid fleet
-(``SimConfig(static_grid=False)``), per-lane weight sweeps (``WeightSet``)
-and the escalation pass.
+(``SimConfig(static_grid=False)``), per-lane weight sweeps (``WeightSet``),
+the escalation pass and LiDAR in the loop (``simulate_lidar_fleet``,
+``simulate_lidar_loop``).  Entry points run on the card unless the caller
+names another device.
 
     config.py          typed configs + scenario presets (copied, not imported)
     utils/maps.py      map loading, obstacle rasterization
     utils/kernels.py   nvcc build + ctypes loading of csrc/*.cu
     ops/               grid, rays, path, dense ADMM, speed profile,
-                       corridor segments, horizon table, structured ADMM;
+                       corridor segments, horizon table, structured ADMM,
+                       lidar.py (scans, cell tables, map write-back);
                        corridor_cuda.py (kernel K2), admm_cuda.py (kernels
-                       K1 and K3), corridor_extract.py (kernel K4)
+                       K1 and K3), corridor_extract.py (kernel K4),
+                       mapping.py (kernels K5 and K6: fused map write-back
+                       + extraction, float32 and bit-packed)
     models/bicycle.py  CarState, frame transforms, plant, linearization
     mpc.py             the fleet control step
-    simulation.py      closed-loop rollouts (fleet and single car)
+    simulation.py      closed-loop rollouts (fleet and single car, LiDAR)
     interop.py         state carried across from the JAX package
 """
 
 from multi_purpose_mpc_tpu_torch.config import (
+    LidarConfig,
     MapConfig,
     ModelConfig,
     MPCConfig,
@@ -40,6 +46,7 @@ from multi_purpose_mpc_tpu_torch.mpc import WeightSet, weights_from_config
 __version__ = "0.1.0"
 
 __all__ = [
+    "LidarConfig",
     "MapConfig",
     "ModelConfig",
     "MPCConfig",

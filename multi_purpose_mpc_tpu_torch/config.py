@@ -9,7 +9,7 @@ Left out, because they select TPU-only code paths the port does not have:
 ``SolverConfig.kernel_lanes`` / ``rolled_stage_loops`` / ``stage_solver``
 (Mosaic lane tiles and stage-loop schedules) and
 ``MPCConfig.solver_backend`` / ``extract_backend`` (the port dispatches on
-the device a tensor lives on).  ``LidarConfig`` arrives with the LiDAR path.
+the device a tensor lives on).
 """
 
 from __future__ import annotations
@@ -170,6 +170,51 @@ class SimConfig:
     # re-extracts them from the grid every step (the semantics a changing
     # grid needs).
     static_grid: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class LidarConfig:
+    """Lidar sensor model (reference: lidar_model.py:10-35).
+
+    ``n_ray_samples`` is a fidelity knob: ``conservative=True`` scans are
+    cell-exact (reference corner-span semantics) only when the sample
+    spacing ``range / (n_ray_samples - 1)`` is below the grid resolution.
+    Check with :meth:`validate_for_grid`, or build with :meth:`for_grid`,
+    which checks at construction.
+    """
+
+    FoV: float = 180.0  # degrees
+    range: float = 5.0  # m
+    resolution: float = 1.0  # degrees / beam
+    n_ray_samples: int = 256  # samples along each beam (fixed-length ray march)
+    # target occupancy-grid resolution (m/px); when set, sampling adequacy
+    # is validated at construction
+    grid_resolution: float | None = None
+
+    def __post_init__(self):
+        if self.grid_resolution is not None:
+            self.validate_for_grid(self.grid_resolution)
+
+    @classmethod
+    def for_grid(cls, grid, **kwargs) -> "LidarConfig":
+        """Construct validated against a concrete ``GridMap`` (raises at
+        setup if ``n_ray_samples`` undersamples its resolution)."""
+        return cls(grid_resolution=float(grid.resolution), **kwargs)
+
+    @property
+    def n_beams(self) -> int:
+        return int(self.FoV / self.resolution + 1)
+
+    def validate_for_grid(self, grid_resolution: float) -> None:
+        """Raise if conservative-mode exactness would quietly degrade on a
+        grid of the given resolution (m/px)."""
+        spacing = self.range / max(self.n_ray_samples - 1, 1)
+        if spacing >= grid_resolution:
+            raise ValueError(
+                f"LidarConfig sample spacing {spacing:.4g} m >= grid "
+                f"resolution {grid_resolution:.4g} m/px: conservative-mode "
+                f"scans can skip intersected cells; need n_ray_samples > "
+                f"{int(self.range / grid_resolution) + 1}")
 
 
 def time_optimal_config(cfg: MPCConfig, t_weight: float = 100.0,

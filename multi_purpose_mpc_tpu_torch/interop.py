@@ -20,6 +20,7 @@ from multi_purpose_mpc_tpu_torch.mpc import WeightSet
 from multi_purpose_mpc_tpu_torch.ops.constraints import SegmentCandidates
 from multi_purpose_mpc_tpu_torch.ops.corridor_extract import ScanlineTable
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap
+from multi_purpose_mpc_tpu_torch.ops.lidar import LidarScan
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import SolverCarry
 from multi_purpose_mpc_tpu_torch.ops.path import PathData
 
@@ -52,6 +53,17 @@ def scanline_table(table, device="cpu") -> ScanlineTable:
     ``window_rows`` dropped)."""
     return ScanlineTable(*(_tensor(getattr(table, f), device)
                            for f in ScanlineTable._fields))
+
+
+def lidar_scan(scan, device="cpu") -> LidarScan:
+    """A ``LidarScan`` (one scan or a fleet's, leading batch axis kept)."""
+    return LidarScan(*(_tensor(getattr(scan, f), device)
+                       for f in LidarScan._fields))
+
+
+def occupancy(occ, device="cpu") -> torch.Tensor:
+    """An occupancy grid (H, W) or per-lane stack (B, H, W), float32."""
+    return torch.tensor(np.asarray(occ, np.float32), device=device)
 
 
 def weight_set(ws, device="cpu") -> WeightSet:

@@ -50,8 +50,9 @@ class WeightSet(NamedTuple):
     QN: Optional[torch.Tensor]  # (..., 3) terminal state cost diagonal
 
 
-def weights_from_config(cfg: MPCConfig, device="cpu") -> WeightSet:
-    """The config's static weights as a :class:`WeightSet` (no fleet axis)."""
+def weights_from_config(cfg: MPCConfig, device="cuda") -> WeightSet:
+    """The config's static weights as a :class:`WeightSet` (no fleet axis),
+    on the card unless the caller names another device."""
     f = lambda w: torch.tensor(w, dtype=torch.float32, device=device)
     return WeightSet(Q=f(cfg.Q), R=f(cfg.R), QN=f(cfg.QN))
 

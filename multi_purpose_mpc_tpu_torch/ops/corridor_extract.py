@@ -155,6 +155,15 @@ def fleet_dynamic_segments(occ: torch.Tensor, table: ScanlineTable,
     (H, W) dynamic grids; ``idx`` (B, N) horizon waypoint indices.  Returns
     candidates with leading (B, N)."""
     h = horizon_tables(table, idx)
-    vals = extract_occ(occ, h.px, h.py)
+    return horizon_segments(extract_occ(occ, h.px, h.py), h, min_width,
+                            max_segments)
+
+
+def horizon_segments(vals: torch.Tensor, h: ScanlineTable, min_width,
+                     max_segments: int) -> SegmentCandidates:
+    """Free-segment candidates from extracted scanline values ``vals``
+    (B, N, K) and their horizon rows ``h`` (:func:`horizon_tables`): the
+    segmenting half of :func:`fleet_dynamic_segments`, shared with the
+    LiDAR fleet, whose extraction runs fused with the map write-back."""
     vals = torch.where(h.inb, vals, torch.zeros_like(vals))  # OOB: occupied
     return segments_from_samples(vals, h.cx, h.cy, min_width, max_segments)

@@ -39,7 +39,9 @@ class GridMap:
         return self.occ.device
 
 
-def make_grid_map(occ, origin, resolution, device="cpu") -> GridMap:
+def make_grid_map(occ, origin, resolution, device="cuda") -> GridMap:
+    """A :class:`GridMap` on ``device``: the card unless the caller names
+    another device (there is no fallback to the CPU)."""
     f32 = torch.float32
     return GridMap(occ=torch.as_tensor(occ, dtype=f32, device=device),
                    origin=torch.as_tensor(origin, dtype=f32, device=device),

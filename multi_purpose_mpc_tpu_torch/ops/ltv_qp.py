@@ -104,7 +104,9 @@ class SolverCarry:
 
 
 def init_solver_carry(N: int, batch: int, rho0: float = 0.1,
-                      device="cpu") -> SolverCarry:
+                      device="cuda") -> SolverCarry:
+    """A zero warm-start carry for ``batch`` lanes, on the card unless the
+    caller names another device."""
     z = lambda *s: torch.zeros((batch,) + s, dtype=torch.float32, device=device)
     return SolverCarry(X=z(N + 1, NX), U=z(N, NU), Zx=z(N + 1, NX),
                        Zu=z(N, NU), Yeq=z(N + 1, NX), Yx=z(N + 1, NX),

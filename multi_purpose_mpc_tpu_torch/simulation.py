@@ -10,7 +10,12 @@ steps; per-step logs are stacked into (T, B) tensors on the fleet's device.
   from the grid (kernel K4), writes them into the horizon block and
   selects the corridor (K2) before the solve;
 * ``weights``: a per-lane :class:`~.mpc.WeightSet` sweep on either grid,
-  solved by kernel K3 instead of K1.
+  solved by kernel K3 instead of K1;
+* LiDAR in the loop (:func:`simulate_lidar_fleet`,
+  :func:`simulate_lidar_loop`): every step scans the true world, writes the
+  hits into the known maps and re-extracts the corridor from them — on the
+  card through kernel K6 (bit-packed per-lane maps) or K5, which write and
+  extract in one launch, then K2 and K1 (K3 under ``weights``).
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from multi_purpose_mpc_tpu_torch.config import MPCConfig, ModelConfig, SimConfig
+from multi_purpose_mpc_tpu_torch.config import (LidarConfig, MPCConfig,
+                                                ModelConfig, SimConfig)
 from multi_purpose_mpc_tpu_torch.models.bicycle import (
     CarState, drive, horizon_indices, init_car_state)
 from multi_purpose_mpc_tpu_torch.mpc import (
@@ -31,11 +37,17 @@ from multi_purpose_mpc_tpu_torch.ops.constraints import (
     SegmentCandidates, extract_all_segments)
 from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select
 from multi_purpose_mpc_tpu_torch.ops.corridor_extract import (
-    ScanlineTable, build_scanline_table, fleet_dynamic_segments)
+    ScanlineTable, build_scanline_table, fleet_dynamic_segments,
+    horizon_segments, horizon_tables)
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     build_horizon_table, empty_segments, horizon_block_from_segments,
     solver_inputs_from_block)
+from multi_purpose_mpc_tpu_torch.ops.lidar import (
+    fleet_writeback, hit_pixels, occupied_cell_table, scan_fleet,
+    scatter_writeback_, waypoint_cell_table, waypoint_slack)
+from multi_purpose_mpc_tpu_torch.ops.mapping import (
+    pack_rows, unpack_rows, writeback_extract, writeback_extract_packed)
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
 
 
@@ -213,6 +225,193 @@ def simulate_closed_loop(grid: GridMap, path: PathData, cfg: MPCConfig,
     res = simulate_fleet(grid, path, cfg, model, sim, state0, table=table)
     return SimResult(final_state=res.final_state,
                      log=SimLog(*(f[:, 0] for f in res.log)))
+
+
+def resolve_lidar_backends(shared_grid: bool, clear_free: bool,
+                           scan_backend: str, writeback_backend: str,
+                           multi_device: bool = False, device="cuda"):
+    """Resolve ``"auto"`` scan / write-back backends for grids on
+    ``device`` and validate the combination.
+
+    On the card the policy is the JAX package's TPU policy: scan ``cells``;
+    write-back ``packed`` (kernel K6) for per-lane maps without
+    ``clear_free``, ``dense`` for a shared grid or with ``clear_free``.  On
+    the CPU it is the JAX package's CPU policy, ``march`` / ``scatter``.
+    ``multi_device=True`` (a sharded shared grid) forces ``dense``: the
+    pooling across devices rides the observation masks."""
+    on_card = torch.device(device).type == "cuda"
+    if scan_backend == "auto":
+        scan_backend = "cells" if on_card else "march"
+    if writeback_backend == "auto":
+        if shared_grid:
+            writeback_backend = "dense" if on_card or multi_device else "scatter"
+        elif on_card:
+            writeback_backend = "packed" if not clear_free else "dense"
+        else:
+            writeback_backend = "scatter"
+    if writeback_backend not in ("scatter", "dense", "fused", "packed"):
+        raise ValueError(f"unknown writeback backend {writeback_backend!r}")
+    if writeback_backend in ("fused", "packed") and (shared_grid or clear_free):
+        raise ValueError(f"{writeback_backend} writeback supports per-lane "
+                         "grids with clear_free=False; use 'dense' or "
+                         "'scatter'")
+    if multi_device and shared_grid and writeback_backend != "dense":
+        raise ValueError("multi-device shared-grid mapping pools observation "
+                         "masks across devices; writeback_backend must be "
+                         "'dense'")
+    return scan_backend, writeback_backend
+
+
+def resolve_cell_table(true_grid: GridMap, path: PathData, lidar: LidarConfig,
+                       cells, scan_backend: str, prune: bool = True):
+    """The ``cells`` scan's static table: the global boundary-cell table of
+    ``true_grid`` unless ``cells`` is given, upgraded with ``prune`` to the
+    per-waypoint table whenever that pays (K < 3/4 M); exact for on-track
+    poses (radius = range + :func:`~.ops.lidar.waypoint_slack`).  None for
+    other scan backends."""
+    if scan_backend != "cells":
+        return None
+    if cells is None:
+        cells = occupied_cell_table(true_grid.occ)
+    if prune and cells.dim() == 2:
+        wpc = waypoint_cell_table(cells, true_grid, path,
+                                  lidar.range + waypoint_slack(path))
+        if wpc.shape[1] < 0.75 * cells.shape[0]:
+            cells = wpc
+    return cells
+
+
+def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
+                         path: PathData, cfg: MPCConfig, model: ModelConfig,
+                         sim: SimConfig, lidar: LidarConfig, state0: CarState,
+                         clear_free: bool = False, shared_grid: bool = False,
+                         table: Optional[ScanlineTable] = None, cells=None,
+                         scan_backend: str = "auto",
+                         writeback_backend: str = "auto",
+                         prune_cells: bool = True,
+                         weights: Optional[WeightSet] = None):
+    """Fleet LiDAR-in-the-loop rollout of ``sim.max_steps`` steps: every
+    step each lane scans ``true_grid``, writes the hits into its known map,
+    re-extracts its corridor from the updated map and solves.  The
+    controller never sees ``true_grid``.
+
+    * ``shared_grid=False``: per-lane maps; ``known_grid.occ`` (H, W) is
+      copied to every lane, or is already (B, H, W).
+    * ``shared_grid=True``: one map, updated by every lane each step
+      (observed-free clearing pooled first, hits after).
+    * ``clear_free``: cells a beam saw as free are cleared (a map refresh
+      for changing scenes).
+
+    Backends (:func:`resolve_lidar_backends`): ``scatter`` / ``dense``
+    write the scans into the maps and run the dynamic-grid step (kernel K4,
+    free runs, K2, then K1, or K3 under ``weights``); ``fused`` / ``packed``
+    write and extract in one launch (kernel K5 on float32 maps, K6 on maps
+    bit-packed 32 rows per word), then free runs, K2 and the solve.
+    ``table``: a prebuilt :class:`ScanlineTable`; ``cells``: the ``cells``
+    scan's table (:func:`resolve_cell_table`).  ``weights``: a per-lane
+    :class:`~.mpc.WeightSet`.
+
+    Returns ``(SimResult, final_known_occ)``: (B, H, W) per lane, or
+    (H, W)."""
+    _validate_weights(weights, state0)
+    dev = known_grid.device
+    if table is None:
+        # pure geometry: a resumed (B, H, W) stack builds from its frame
+        frame = known_grid
+        if known_grid.occ.dim() == 3:
+            frame = dataclasses.replace(known_grid, occ=known_grid.occ[0])
+        table = build_scanline_table(frame, path, cfg.n_scan_samples)
+    scan_backend, writeback_backend = resolve_lidar_backends(
+        shared_grid, clear_free, scan_backend, writeback_backend, device=dev)
+    cells = resolve_cell_table(true_grid, path, lidar, cells, scan_backend,
+                               prune=prune_cells)
+    B = state0.batch
+    base = build_horizon_table(
+        path, empty_segments(path.n_wp, cfg.max_segments, path.x.device), cfg)
+    H, W = known_grid.occ.shape[-2:]
+    sm = model.safety_margin
+
+    def lane_stack(occ):
+        """The rollout's own contiguous map carry: per-lane maps copied
+        from a 2-D frame (an expanded view would alias every lane's map),
+        or a copy of the caller's stack or shared grid."""
+        if not shared_grid and occ.dim() == 2:
+            occ = occ.expand(B, -1, -1)
+        return occ.clone(memory_format=torch.contiguous_format)
+
+    def scans_of(st):
+        return scan_fleet(true_grid, st.x, st.y, st.psi, lidar, cells=cells,
+                          backend=scan_backend, wp_id=st.wp_id)
+
+    if writeback_backend in ("fused", "packed"):
+        packed = writeback_backend == "packed"
+        fused = writeback_extract_packed if packed else writeback_extract
+        occ = known_grid.occ
+        carry = [lane_stack(pack_rows(occ)) if packed else lane_stack(occ)]
+
+        def step(st):
+            located, idx = _locate_horizon(st, path, cfg)
+            h = horizon_tables(table, idx)
+            scans = scans_of(st)
+            hpx, hpy = hit_pixels(known_grid, scans, H, W)
+            carry[0], vals = fused(carry[0], hpx.contiguous(),
+                                   hpy.contiguous(), scans.hit.contiguous(),
+                                   h.px, h.py)
+            segs = horizon_segments(vals, h, 2.0 * sm, cfg.max_segments)
+            corridor, blk = _select_corridor_batched(base, located[0], segs,
+                                                     cfg, sm)
+            out = mpc_step_batched_with_corridor(
+                st, cfg, model, located, corridor,
+                solver_inputs_from_block(blk, cfg.max_segments),
+                weights=weights)
+            return _post_control(out, path, model)
+
+        res = _rollout(step, state0, sim.max_steps)
+        return res, unpack_rows(carry[0], H) if packed else carry[0]
+
+    carry = [lane_stack(known_grid.occ)]
+
+    def step(st):
+        scans = scans_of(st)
+        if writeback_backend == "dense":
+            carry[0] = fleet_writeback(known_grid, carry[0], st.x, st.y,
+                                       st.psi, scans, lidar,
+                                       clear_free=clear_free,
+                                       shared=shared_grid)
+        else:
+            scatter_writeback_(known_grid, carry[0], st.x, st.y, st.psi,
+                               scans, clear_free=clear_free,
+                               shared=shared_grid)
+        return _sim_step_batched_gridded(st, path, carry[0], cfg, model,
+                                         table, base, weights)
+
+    res = _rollout(step, state0, sim.max_steps)
+    return res, carry[0]
+
+
+def simulate_lidar_loop(true_grid: GridMap, known_grid: GridMap,
+                        path: PathData, cfg: MPCConfig, model: ModelConfig,
+                        sim: SimConfig, lidar: LidarConfig,
+                        state0: Optional[CarState] = None,
+                        clear_free: bool = False,
+                        table: Optional[ScanlineTable] = None,
+                        scan_backend: str = "auto",
+                        writeback_backend: str = "auto"):
+    """Single-car LiDAR-in-the-loop rollout (BASELINE.json config 4): the
+    fleet path at batch 1, kernels included.  Logs come back as (T,), the
+    final known map as a :class:`GridMap` (H, W); ``final_state`` keeps its
+    batch axis of 1.  Returns ``(SimResult, final_known_grid)``."""
+    if state0 is None:
+        state0 = init_car_state(path, cfg.N)
+    if state0.batch != 1:
+        raise ValueError(f"simulate_lidar_loop takes one car, got {state0.batch}")
+    res, occ = simulate_lidar_fleet(true_grid, known_grid, path, cfg, model,
+                                    sim, lidar, state0, clear_free=clear_free,
+                                    table=table, scan_backend=scan_backend,
+                                    writeback_backend=writeback_backend)
+    return (SimResult(final_state=res.final_state,
+                      log=SimLog(*(f[:, 0] for f in res.log))),
+            dataclasses.replace(known_grid, occ=occ[0]))
 
 
 def init_fleet(path: PathData, N: int, batch: int, e_y0=None, e_psi0=None,

@@ -96,3 +96,24 @@ def check_launch(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's resource report (registers, stack, shared memory, spills)
+    of ``csrc/<name>.cu`` compiled with the build flags."""
+    with tempfile.TemporaryDirectory() as d:
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                               os.path.join(d, "lib.so"),
+                               str(SRC_DIR / f"{name}.cu")],
+                              capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    return proc.stderr
+
+
+if __name__ == "__main__":
+    # python -m multi_purpose_mpc_tpu_torch.utils.kernels [name ...]
+    import sys
+
+    for kernel in sys.argv[1:] or sorted(p.stem for p in SRC_DIR.glob("*.cu")):
+        print(f"== {kernel}.cu\n{ptxas_report(kernel)}", flush=True)

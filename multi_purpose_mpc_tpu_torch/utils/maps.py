@@ -66,8 +66,9 @@ def add_obstacles_host(grid: GridMap, origin, resolution: float,
     return rasterize_disks_px(grid, px, py, r_px)
 
 
-def load_grid_map(cfg: MapConfig, device="cpu") -> GridMap:
-    """Load a :class:`GridMap` from a :class:`MapConfig` onto ``device``."""
+def load_grid_map(cfg: MapConfig, device="cuda") -> GridMap:
+    """Load a :class:`GridMap` from a :class:`MapConfig` onto ``device`` (the
+    card unless the caller names another device)."""
     data = load_map_image(cfg.file_path, cfg.threshold_occupied, cfg.hole_area_threshold)
     return make_grid_map(data.astype(np.float32), cfg.origin, cfg.resolution,
                          device=device)

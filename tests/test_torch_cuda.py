@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from multi_purpose_mpc_tpu_torch.config import SimConfig, sim_track_preset
+from multi_purpose_mpc_tpu_torch.config import (LidarConfig, SimConfig,
+                                                sim_track_preset)
 from multi_purpose_mpc_tpu_torch.mpc import (WeightSet, kappa_predictions,
                                              mpc_locate, mpc_pre_solve)
 from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
-                                             corridor_extract)
+                                             corridor_extract, mapping)
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     gather_horizon_block, solver_inputs_from_block)
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import (StageQP,
@@ -31,6 +32,7 @@ from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
 from multi_purpose_mpc_tpu_torch.simulation import (_locate_horizon,
                                                     init_fleet,
                                                     simulate_fleet,
+                                                    simulate_lidar_fleet,
                                                     static_horizon_table)
 from multi_purpose_mpc_tpu_torch.utils import kernels
 from multi_purpose_mpc_tpu_torch.utils.maps import (add_obstacles_host,
@@ -109,7 +111,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     z = torch.zeros((2, 30))
     with pytest.raises(ValueError):
         admm_cuda.solve_mpc_qp_fused_cuda(
-            z, z, z, z, z, torch.zeros((2, 3)), z, init_solver_carry(30, 2),
+            z, z, z, z, z, torch.zeros((2, 3)), z,
+            init_solver_carry(30, 2, device="cpu"),
             sim_track_preset()[3].solver, sim_track_preset()[3],
             sim_track_preset()[2])
     sq = StageQP(AB=torch.zeros((2, 30, 3, 5)),
@@ -117,8 +120,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                  qv=torch.zeros((2, 31, 5)), lw=torch.zeros((2, 31, 5)),
                  uw=torch.zeros((2, 31, 5)))
     with pytest.raises(ValueError):
-        admm_cuda.solve_ltv_qp_structured_cuda(sq, init_solver_carry(30, 2),
-                                               sim_track_preset()[3].solver)
+        admm_cuda.solve_ltv_qp_structured_cuda(
+            sq, init_solver_carry(30, 2, device="cpu"),
+            sim_track_preset()[3].solver)
     pxy = torch.zeros((2, 30, 128), dtype=torch.int32)
     with pytest.raises(ValueError):
         corridor_extract.extract_occ_cuda(torch.ones((500, 500)), pxy, pxy)
@@ -240,3 +244,104 @@ def test_dynamic_fleet_on_card_equals_static(cuda_sc):
     assert corridor_extract.extract_occ_cuda.launches == n0 + 3
     for f in static.log._fields:
         assert torch.equal(getattr(dyn.log, f), getattr(static.log, f)), f
+
+
+def _hits(occ, px, py, nb, seed):
+    """(hpx, hpy, hit) for (B, nb) beams: 60 % hits on random cells, and
+    a quarter of the beams on the lane's own scanline samples, so that an
+    extraction reading the grid before the write-back would differ."""
+    Bsz, H, W = occ.shape
+    dev = occ.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hpx = torch.randint(0, W, (Bsz, nb), generator=gen, device=dev,
+                        dtype=torch.int32)
+    hpy = torch.randint(0, H, (Bsz, nb), generator=gen, device=dev,
+                        dtype=torch.int32)
+    hit = torch.rand((Bsz, nb), generator=gen, device=dev) < 0.6
+    on = nb // 4
+    flat = torch.randint(0, px.shape[1] * px.shape[2], (Bsz, on),
+                         generator=gen, device=dev)
+    hpx[:, :on] = px.flatten(1).gather(1, flat)
+    hpy[:, :on] = py.flatten(1).gather(1, flat)
+    hit[:, :on] = True
+    return hpx, hpy, hit
+
+
+def _lane_maps(cuda_sc, lanes):
+    grid, path, cfg = cuda_sc["grid"], cuda_sc["path"], cuda_sc["cfg"]
+    scan = corridor_extract.build_scanline_table(grid, path,
+                                                 cfg.n_scan_samples)
+    _, idx = _locate_horizon(cuda_sc["fleet"], path, cfg)
+    h = corridor_extract.horizon_tables(scan, idx[:lanes])
+    occ = grid.occ.expand(lanes, -1, -1).clone()
+    gen = torch.Generator(device=occ.device).manual_seed(1)
+    occ[torch.rand(occ.shape, generator=gen, device=occ.device) < 0.01] = 0.0
+    return occ, h.px.contiguous(), h.py.contiguous()
+
+
+@pytest.mark.cuda
+def test_k5_k6_kernels_bitwise_equal_plain(cuda_sc):
+    occ, px, py = _lane_maps(cuda_sc, 64)
+    hpx, hpy, hit = _hits(occ, px, py, 91, 2)
+    o5, v5 = mapping.writeback_extract_cuda(occ, hpx, hpy, hit, px, py)
+    r5, w5 = mapping.writeback_extract_plain(occ, hpx, hpy, hit, px, py)
+    pk = mapping.pack_rows(occ)
+    o6, v6 = mapping.writeback_extract_packed_cuda(pk, hpx, hpy, hit, px, py)
+    r6, w6 = mapping.writeback_extract_packed_plain(pk, hpx, hpy, hit, px, py)
+    torch.cuda.synchronize()
+    assert torch.equal(o5, r5) and torch.equal(v5, w5)
+    assert torch.equal(o6, r6) and torch.equal(v6, w6)
+    assert torch.equal(mapping.unpack_rows(o6, occ.shape[1]), o5)
+    assert torch.equal(v6, v5)
+    assert not torch.equal(v5, corridor_extract.extract_occ_gather(occ, px, py))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+def test_k5_k6_on_a_real_track_sized_grid(cuda_device):
+    """767 x 867: rows not a multiple of 32 or of 4 floats (K5's scalar
+    copy) and 83,232 bytes of packed words per lane (K6 above 48 KB of
+    shared memory)."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    occ = (torch.rand((16, 767, 867), generator=gen, device=dev) < 0.7).float()
+    px = torch.randint(0, 867, (16, 30, 128), generator=gen, device=dev,
+                       dtype=torch.int32)
+    py = torch.randint(0, 767, (16, 30, 128), generator=gen, device=dev,
+                       dtype=torch.int32)
+    hpx, hpy, hit = _hits(occ, px, py, 91, 4)
+    hpy[:, -1] = 766  # the last row, next to the free padding
+    o5, v5 = mapping.writeback_extract_cuda(occ, hpx, hpy, hit, px, py)
+    r5, w5 = mapping.writeback_extract_plain(occ, hpx, hpy, hit, px, py)
+    o6, v6 = mapping.writeback_extract_packed_cuda(mapping.pack_rows(occ),
+                                                   hpx, hpy, hit, px, py)
+    torch.cuda.synchronize()
+    assert torch.equal(o5, r5) and torch.equal(v5, w5)
+    assert torch.equal(mapping.unpack_rows(o6, 767), o5) and torch.equal(v6, v5)
+    assert bool((mapping.unpack_rows(o6, 768)[:, 767] == 1.0).all())
+
+
+@pytest.mark.cuda
+def test_lidar_fleet_on_card_equals_dynamic(cuda_sc):
+    """On the card the LiDAR fleet with the true map as known map (cells
+    scan, packed write-back: K6, K2, K1) drives exactly as the dynamic-grid
+    fleet (K4, K2, K1), and its maps stay the true grid."""
+    kw = dict(path=cuda_sc["path"], cfg=cuda_sc["cfg"], model=cuda_sc["model"],
+              state0=cuda_sc["fleet"])
+    n6 = mapping.writeback_extract_packed_cuda.launches
+    res, occ = simulate_lidar_fleet(
+        cuda_sc["grid"], cuda_sc["grid"], sim=SimConfig(max_steps=3),
+        lidar=LidarConfig(FoV=360, range=1.0, resolution=4,
+                          n_ray_samples=192), **kw)
+    dyn = simulate_fleet(cuda_sc["grid"],
+                         sim=SimConfig(max_steps=3, static_grid=False), **kw)
+    assert mapping.writeback_extract_packed_cuda.launches == n6 + 3
+    for f in dyn.log._fields:
+        assert torch.equal(getattr(res.log, f), getattr(dyn.log, f)), f
+    assert torch.equal(occ, cuda_sc["grid"].occ.expand_as(occ))

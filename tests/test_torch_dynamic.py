@@ -251,7 +251,7 @@ def test_dynamic_corridor_vs_float64_oracle(sc):
     disk = ((xx + 0.5) * res + origin[0] - cxo) ** 2 \
         + ((yy + 0.5) * res + origin[1] - cyo) ** 2 <= 0.03 ** 2
     occ[disk] = 0.0
-    grid = make_grid_map(occ, origin, res)
+    grid = make_grid_map(occ, origin, res, device="cpu")
 
     wp = torch.tensor([50, 55, 58, 120], dtype=torch.int32)
     offs = torch.arange(N)

@@ -8,6 +8,7 @@ other tests/test_torch_*.py files.
 
 import dataclasses
 import functools
+import inspect
 import math
 import os
 import subprocess
@@ -84,7 +85,7 @@ def port_setup():
     """Sim_Track built through the port alone."""
     map_cfg, path_cfg, model_cfg, mpc_cfg, speed_cfg, obstacles = (
         tcfg.sim_track_preset(asset_dir=ASSETS))
-    grid = tmaps.load_grid_map(map_cfg)
+    grid = tmaps.load_grid_map(map_cfg, device="cpu")
     path = build_reference_path(grid, path_cfg)
     grid = tmaps.add_obstacles_host(grid, map_cfg.origin, map_cfg.resolution,
                                     obstacles)
@@ -97,6 +98,8 @@ def test_port_never_imports_jax():
             "multi_purpose_mpc_tpu_torch.simulation, "
             "multi_purpose_mpc_tpu_torch.ops.corridor_extract, "
             "multi_purpose_mpc_tpu_torch.ops.admm_cuda, "
+            "multi_purpose_mpc_tpu_torch.ops.lidar, "
+            "multi_purpose_mpc_tpu_torch.ops.mapping, "
             "multi_purpose_mpc_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_purpose_mpc_tpu')]; "
@@ -115,7 +118,8 @@ _LEFT_OUT = {"SolverConfig": {"kernel_lanes", "rolled_stage_loops",
 
 @pytest.mark.parametrize("name", ["MapConfig", "PathConfig", "ModelConfig",
                                   "SolverConfig", "MPCConfig",
-                                  "SpeedProfileConstraints", "SimConfig"])
+                                  "SpeedProfileConstraints", "SimConfig",
+                                  "LidarConfig"])
 def test_config_defaults_match(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
     jf = {f.name: f for f in dataclasses.fields(jc)}
@@ -129,6 +133,15 @@ def test_config_defaults_match(name):
         j, t = jcfg.MPCConfig(), tcfg.MPCConfig()
         _assert_shared_fields_equal(j, t)
         assert t.kappa_max(0.12) == j.kappa_max(0.12)
+    if name == "LidarConfig":
+        kw = dict(FoV=270, range=1.0, resolution=3, n_ray_samples=256)
+        j, t = jcfg.LidarConfig(**kw), tcfg.LidarConfig(**kw)
+        _assert_shared_fields_equal(j, t)
+        assert t.n_beams == j.n_beams == 91
+        assert tcfg.LidarConfig.for_grid(
+            tgrid.make_grid_map(np.ones((2, 2)), (0.0, 0.0), 0.005,
+                                device="cpu"), **kw).grid_resolution \
+            == float(np.float32(0.005))
 
 
 def _assert_shared_fields_equal(a, b):
@@ -153,6 +166,22 @@ def test_presets_match(preset):
             assert tuple(a) == tuple(b)
     jm, tm = j[2], t[2]
     assert jm.safety_margin == tm.safety_margin
+
+
+def test_entry_points_default_to_the_card():
+    """The entry points a user calls first run on the card unless the
+    caller names another device (read from the signatures: nothing is
+    allocated)."""
+    from multi_purpose_mpc_tpu_torch.mpc import weights_from_config
+    from multi_purpose_mpc_tpu_torch.ops.ltv_qp import init_solver_carry
+
+    for fn in (tmaps.load_grid_map, tgrid.make_grid_map, weights_from_config,
+               init_solver_carry):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__name__
+    # the JAX carry-across helpers stay on the CPU (they feed CPU tests)
+    assert inspect.signature(interop.grid_map).parameters[
+        "device"].default == "cpu"
 
 
 def test_budget_warning_matches():

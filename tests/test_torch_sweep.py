@@ -192,7 +192,8 @@ def test_uniform_sweep_matches_plain_fleet(sc):
     kw = dict(grid=sc["tgrid"], path=sc["tpath"], cfg=cfg, model=model,
               sim=sim, state0=fleet0, table=sc["table"])
     plain = tsim.simulate_fleet(**kw)
-    ws = WeightSet(*(w.expand(B, -1) for w in weights_from_config(cfg)))
+    ws = WeightSet(*(w.expand(B, -1)
+                     for w in weights_from_config(cfg, device="cpu")))
     swept = tsim.simulate_fleet(weights=ws, **kw)
     assert (swept.log.ok == plain.log.ok).float().mean() >= 0.95
     assert float((swept.log.v - plain.log.v).abs().max()) < 0.05
@@ -230,7 +231,8 @@ def test_partial_weightset_falls_back_per_leaf(sc):
     B, T = 2, 2
     cfg = sc["tcfg"]
     fleet0 = tsim.init_fleet(sc["tpath"], cfg.N, B)
-    full = WeightSet(*(w.expand(B, -1) for w in weights_from_config(cfg)))
+    full = WeightSet(*(w.expand(B, -1)
+                       for w in weights_from_config(cfg, device="cpu")))
     kw = dict(grid=sc["tgrid"], path=sc["tpath"], cfg=cfg,
               model=sc["tmodel"], sim=SimConfig(max_steps=T), state0=fleet0,
               table=sc["table"])
@@ -252,7 +254,7 @@ def test_misbatched_weightset_raises(sc):
                                          r"batch; got \(3, 3\)"):
         tsim.simulate_fleet(weights=bad, **kw)
     with pytest.raises(ValueError, match="WeightSet.Q"):
-        tsim.simulate_fleet(weights=weights_from_config(cfg), **kw)
+        tsim.simulate_fleet(weights=weights_from_config(cfg, device="cpu"), **kw)
 
 
 def _solution(rng, B, N, mod):
