@@ -15,8 +15,11 @@ solver budget — through their public entry points, in phases:
 4. K1 (fused QP assembly + ADMM + floor) vs its plain twin on 4096 lanes'
    first QP (their raw Monte-Carlo draw, before feasible_starts clips it,
    so some QPs are certified infeasible) and on the QP after 10 closed-loop
-   steps: status agreement >= 99.5 %, r_prim within 1e-4, accepted U[:, 0]
-   within 3e-3, floor within 1e-6, some floor > 0 in both;
+   steps: bitwise equal (W, Zw, Yeq, Yw, rho, r_prim, r_dual, floor; NaN
+   equal to NaN), status agreement >= 99.5 %, r_prim within 1e-4, accepted
+   U[:, 0] within 3e-3, floor within 1e-6, some floor > 0 in both; bitwise
+   also at B = 1, at a ragged B = 33 and at N = 60 (B = 256); the kernel's
+   time at B = 1, 128, 1024 and 4096 beside its bound ([K1 scaling]);
 5. main path: ``simulate_fleet`` at B = 4096 for 50 steps; every kernel's
    launch count equals the step count; bench.py's fleet-health gates;
 6. single car: ``simulate_closed_loop`` completes the lap within 250 steps
@@ -26,7 +29,8 @@ solver budget — through their public entry points, in phases:
    (256, 500, 500) per-lane grid stack with extra random disks;
 8. K3 (ADMM on pre-assembled QPs) vs its plain version on 4096
    sweep-weighted QPs (first QP of the raw draw, and after 10 sweep
-   steps), at K1's bars;
+   steps), at K1's bars and bitwise, also at B = 1, 33 and N = 60; its
+   scaling line ([K3 scaling]);
 9. dynamic grid: ``simulate_fleet(static_grid=False)`` at B = 4096 for 50
    steps on the unchanged grid: K4 = K2 = K1 = 50 launches, K3 = 0, the
    log (x, y, v, ok, floor) bitwise equal to phase 5's, health gates;
@@ -52,7 +56,13 @@ solver budget — through their public entry points, in phases:
     then fused maps: cells found per lane, logs and final maps of the two
     runs bitwise equal, health gates; a step breakdown;
 17. one car, ``simulate_lidar_loop``, 40 steps from an all-free known map:
-    > 200 cells found, s > 1 m, not failed, max |e_y| < 0.25.
+    > 200 cells found, s > 1 m, not failed, max |e_y| < 0.25;
+18. horizon N = 60, 30 steps: tests/test_horizon.py's three starts with
+    its bars (every lane progresses > 0.5 m, no failed lane, accept > 0.8,
+    max |e_y| < 0.25); then ``simulate_fleet`` at B = 1024 from
+    ``feasible_starts``: K1 = K2 = 30 launches, bench.py's health gates,
+    accept > 0.8, max |e_y| < 0.25, every lane that has not finished the
+    lap progresses > 0.5 m.
 
 Prints a JSON line with each kernel's launches, error, times and bound
 (``bound_ms`` from the bytes each kernel must move and the float32
@@ -85,6 +95,14 @@ K1_STATUS_AGREE = 0.995
 K1_RPRIM_TOL = 1e-4
 K1_U0_TOL = 3e-3
 K1_FLOOR_TOL = 1e-6
+# phases 4 and 8: the batches of the scaling lines and of the extra
+# bitwise checks; phase 18's horizon fleet
+SCALING_B = (1, 128, 1024, 4096)
+BITWISE_B = (1, 33)
+N60 = 60
+N60_B = 256  # the N = 60 bitwise checks
+N60_FLEET_B = 1024
+N60_STEPS = 30
 # phase 7-12 sizes
 K4_LANE_GRIDS = 256
 ESC_LANES = 128
@@ -269,6 +287,58 @@ def same_log(log, ref, label, fields=("x", "y", "v", "ok", "floor")):
                 f"{float(a[t, lane])} vs {float(b[t, lane])}")
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN equal to NaN: where several terms of a max
+    reduction are NaN, K1/K3's warp reduction may return another NaN
+    payload than a left-to-right maximum (csrc/admm_core.cuh)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    same = (a.view(torch.int32) == b.view(torch.int32)
+            if a.dtype == torch.float32 else a == b)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+RAW_NAMES = ("W", "Zw", "Yeq", "Yw", "rho", "r_prim", "r_dual", "floor")
+
+
+def first_lanes(obj, n):
+    """The first ``n`` lanes (contiguous) of a tensor or of a dataclass of
+    tensors (a carry, a StageQP); anything else (configs) as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj[:n].contiguous()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        vals = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+        if all(isinstance(v, torch.Tensor) for v in vals.values()):
+            return type(obj)(**{k: v[:n].contiguous() for k, v in vals.items()})
+    return obj
+
+
+def profile_steps(label, run, steps: int, wall: float, card: str):
+    """Device time by kernel over ``run()`` (a rollout of ``steps`` steps),
+    from torch.profiler's CUDA activity, and the device's idle share
+    against ``wall``, the ms per step of the same rollout unprofiled (the
+    profiler slows the host's launches, not the device's work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / steps
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events) / 1e3 / steps
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    print(f"[profile] {label}, ms per step (torch.profiler, {card}): wall "
+          f"{wall:.3f} unprofiled ({prof_wall:.3f} profiled), device busy "
+          f"{busy:.3f}, idle "
+          f"{100.0 * (1.0 - busy / wall):.1f} %; top: " + "; ".join(
+              f"{e.key[:48]} {dev_us(e) / 1e3 / steps:.3f}" for e in top),
+          flush=True)
+
+
 def synthetic_hits(occ, px, py, nb: int, seed: int):
     """(hpx, hpy, hit), (B, nb) each: 60 % hits on random cells of the
     (B, H, W) grids, and a quarter of the beams on the lane's own scanline
@@ -410,15 +480,26 @@ def main():
     print(f"[K2] bound {k2_bound[0]:.5f} ms ({k2_bound[1]})", flush=True)
 
     # ---- phase 4: K1 vs twin ----
-    def k1_inputs(state):
+    def k1_inputs(state, tbl=table, c=cfg):
         wp, e_y, e_psi = mpc_locate(state, path)
-        b = gather_horizon_block(table, wp)
+        b = gather_horizon_block(tbl, wp)
         cor = corridor_cuda.corridor_select_cuda(b, S, sm)
         v, k, ds = solver_inputs_from_block(b, S)
         x0 = torch.stack([e_y, e_psi, torch.zeros_like(e_y)], -1)
         return (v, k, ds, cor.lb, cor.ub, x0,
-                kappa_predictions(state.u_seq, cfg.N), state.solver,
-                cfg.solver, cfg, model)
+                kappa_predictions(state.u_seq, c.N), state.solver,
+                c.solver, c, model)
+
+    def bitwise_check(kernel, label, raw_k, raw_p):
+        """Raise unless the kernel's raw outputs equal the plain version's
+        bit for bit (NaN equal to NaN)."""
+        bad = [n for n, a, b in zip(RAW_NAMES, raw_k, raw_p)
+               if not same_bits(a, b)]
+        print(f"[{kernel}] {label}: bitwise equal to the plain version on "
+              f"{', '.join(RAW_NAMES[:len(raw_k)])}: {not bad}", flush=True)
+        if bad:
+            raise AssertionError(f"{kernel} differs from its plain version "
+                                 f"({label}) in {bad}")
 
     def k1_check(label, args):
         raw_k = admm_cuda.solve_mpc_qp_fused_cuda(*args)
@@ -428,7 +509,7 @@ def main():
                                        args[4], cfg.solver, cfg)
         sol_p, fl_p = admm_cuda.finish(raw_p, args[0], args[1], args[3],
                                        args[4], cfg.solver, cfg)
-        bitwise = all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+        bitwise_check("K1", label, raw_k, raw_p)
         agree = float((sol_k.status == sol_p.status).float().mean())
         d_rp = float((sol_k.r_prim - sol_p.r_prim).abs().max())
         acc = ((sol_k.status != 2) & (sol_k.r_prim <= cfg.feas_tol)
@@ -436,7 +517,7 @@ def main():
         d_u0 = float((sol_k.U[:, 0] - sol_p.U[:, 0]).abs()[acc].max())
         d_fl = float((fl_k - fl_p).abs().max())
         n_pos = int((fl_k > 0).sum())
-        print(f"[K1] {label}: bitwise={bitwise} status agree {agree:.5f}, "
+        print(f"[K1] {label}: status agree {agree:.5f}, "
               f"max|d r_prim| {d_rp:.3e}, max|d U0| (accepted, "
               f"{int(acc.sum())} lanes) {d_u0:.3e}, max|d floor| {d_fl:.3e}, "
               f"lanes with floor > 0: {n_pos}", flush=True)
@@ -457,11 +538,39 @@ def main():
                           fleet, table=table).final_state
     k1_err = max(k1_err, k1_check("QP after 10 closed-loop steps",
                                   k1_inputs(warm)))
-    k1_ms = cuda_ms(lambda: admm_cuda.solve_mpc_qp_fused_cuda(*args_first), 3)
+    # the N = 60 fleet of phase 18 and its first QPs
+    cfg60 = dataclasses.replace(cfg, N=N60)
+    table60 = static_horizon_table(grid, path, cfg60, model)
+    wp60, ey60 = feasible_starts(grid, path, cfg60, model, N60_FLEET_B,
+                                 np.random.default_rng(SEED))
+    fleet60 = init_fleet(path, N60, N60_FLEET_B, e_y0=ey60, wp_id0=wp60)
+    args60 = k1_inputs(fleet60, table60, cfg60)
+    for label, args in [(f"B={n}, N={cfg.N}", [first_lanes(a, n)
+                                               for a in args_first])
+                        for n in BITWISE_B] + [
+            (f"B={N60_B}, N={N60}", [first_lanes(a, N60_B) for a in args60])]:
+        bitwise_check("K1", label, admm_cuda.solve_mpc_qp_fused_cuda(*args),
+                      admm_cuda.solve_mpc_qp_fused_plain(*args))
+
+    def scaling(kernel, launch, plain, args):
+        """``{B: (ms, bound)}`` of ``launch(*first B lanes of args)``,
+        printed as one line."""
+        rows = {}
+        for n in SCALING_B:
+            a = [first_lanes(x, n) for x in args]
+            rows[n] = (cuda_ms(lambda: launch(*a), 10),
+                       bound(nbytes(a, launch(*a)),
+                             count_ops(lambda: plain(*a))))
+        print(f"[{kernel} scaling] N={cfg.N}, kernel ms (bound ms, by) per "
+              f"batch: " + ", ".join(
+                  f"B={n}: {ms:.4f} ({bnd[0]:.5f}, {bnd[1]})"
+                  for n, (ms, bnd) in rows.items()) + f" ({card})", flush=True)
+        return rows
+
+    k1_rows = scaling("K1", admm_cuda.solve_mpc_qp_fused_cuda,
+                      admm_cuda.solve_mpc_qp_fused_plain, args_first)
+    k1_ms, k1_bound = k1_rows[B]
     k1_plain_ms = cuda_ms(lambda: admm_cuda.solve_mpc_qp_fused_plain(*args_first), 1)
-    k1_bound = bound(
-        nbytes(args_first, admm_cuda.solve_mpc_qp_fused_cuda(*args_first)),
-        count_ops(lambda: admm_cuda.solve_mpc_qp_fused_plain(*args_first)))
     print(f"[K1] kernel {k1_ms:.3f} ms, twin {k1_plain_ms:.1f} ms, bound "
           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}) at B={B}, N={cfg.N} ({card})",
           flush=True)
@@ -483,6 +592,9 @@ def main():
     print(f"[main] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
           f"{fmt_health(h)} on {card}", flush=True)
     check_health(h, "main")
+    profile_steps(f"static grid B={B}", lambda: simulate_fleet(
+        grid, path, cfg, model, SimConfig(max_steps=10), fleet, table=table),
+        10, dt / STEPS * 1e3, card)
 
     # ---- phase 6: single car ----
     t0 = time.perf_counter()
@@ -544,12 +656,12 @@ def main():
                                   dtype=torch.float32, device=dev)[row_of]
     weights = WeightSet(Q=wsel(0), R=wsel(1), QN=wsel(2))
 
-    def k3_inputs(state):
+    def k3_inputs(state, tbl=table, c=cfg, w=weights):
         located = mpc_locate(state, path)
-        b = gather_horizon_block(table, located[0])
+        b = gather_horizon_block(tbl, located[0])
         cor = corridor_cuda.corridor_select_cuda(b, S, sm)
-        qp, _ = mpc_pre_solve(state, cfg, model, located, cor,
-                              solver_inputs_from_block(b, S), weights)
+        qp, _ = mpc_pre_solve(state, c, model, located, cor,
+                              solver_inputs_from_block(b, S), w)
         return pack_qp(qp), state.solver
 
     def k3_check(label, sq, warm):
@@ -559,13 +671,13 @@ def main():
         qmax = sq.qv.abs().flatten(1).amax(1)
         sol_k = admm_cuda.finish_solve(raw_k, qmax, cfg.solver)
         sol_p = admm_cuda.finish_solve(raw_p, qmax, cfg.solver)
-        bitwise = all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+        bitwise_check("K3", label, raw_k, raw_p)
         agree = float((sol_k.status == sol_p.status).float().mean())
         d_rp = float((sol_k.r_prim - sol_p.r_prim).abs().max())
         acc = ((sol_k.status != 2) & (sol_k.r_prim <= cfg.feas_tol)
                & (sol_p.status != 2) & (sol_p.r_prim <= cfg.feas_tol))
         d_u0 = float((sol_k.U[:, 0] - sol_p.U[:, 0]).abs()[acc].max())
-        print(f"[K3] {label}: bitwise={bitwise} status agree {agree:.5f}, "
+        print(f"[K3] {label}: status agree {agree:.5f}, "
               f"max|d r_prim| {d_rp:.3e}, max|d U0| (accepted, "
               f"{int(acc.sum())} lanes) {d_u0:.3e}", flush=True)
         if not (agree >= K1_STATUS_AGREE and d_rp <= K1_RPRIM_TOL
@@ -579,15 +691,24 @@ def main():
                              fleet, table=table, weights=weights).final_state
     k3_err = max(k3_err, k3_check("QP after 10 sweep steps",
                                   *k3_inputs(swept10)))
-    k3_ms = cuda_ms(lambda: admm_cuda.solve_ltv_qp_structured_cuda(
-        sq_first, warm_first, cfg.solver), 3)
+    w60 = WeightSet(*(first_lanes(x, N60_B) for x in weights))
+    sq60, warm60 = k3_inputs(init_fleet(path, N60, N60_B, e_y0=ey60[:N60_B],
+                                        wp_id0=wp60[:N60_B]),
+                             table60, cfg60, w60)
+    for label, args in [(f"B={n}, N={cfg.N}",
+                         (first_lanes(sq_first, n), first_lanes(warm_first, n)))
+                        for n in BITWISE_B] + [
+            (f"B={N60_B}, N={N60}", (sq60, warm60))]:
+        bitwise_check("K3", label,
+                      admm_cuda.solve_ltv_qp_structured_cuda(*args, cfg.solver),
+                      admm_cuda.solve_ltv_qp_structured_plain(*args, cfg.solver))
+    k3_rows = scaling("K3", lambda sq, w: admm_cuda.solve_ltv_qp_structured_cuda(
+                          sq, w, cfg.solver),
+                      lambda sq, w: admm_cuda.solve_ltv_qp_structured_plain(
+                          sq, w, cfg.solver), (sq_first, warm_first))
+    k3_ms, k3_bound = k3_rows[B]
     k3_plain_ms = cuda_ms(lambda: admm_cuda.solve_ltv_qp_structured_plain(
         sq_first, warm_first, cfg.solver), 1)
-    k3_bound = bound(
-        nbytes(sq_first, warm_first, admm_cuda.solve_ltv_qp_structured_cuda(
-            sq_first, warm_first, cfg.solver)),
-        count_ops(lambda: admm_cuda.solve_ltv_qp_structured_plain(
-            sq_first, warm_first, cfg.solver)))
     print(f"[K3] kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms, bound "
           f"{k3_bound[0]:.4f} ms ({k3_bound[1]}) at B={B}, N={cfg.N} ({card})",
           flush=True)
@@ -909,6 +1030,51 @@ def main():
           flush=True)
     if n_found <= 200 or s_end <= 1.0 or failed or max_ey >= 0.25:
         raise AssertionError("single-car LiDAR loop gates failed")
+
+    # ---- phase 18: horizon N = 60, static grid ----
+    # tests/test_horizon.py's own three starts, 30 steps, on the card
+    fleet3 = init_fleet(path, N60, 3, wp_id0=torch.tensor(
+        [0, 70, 140], dtype=torch.int32, device=dev))
+    three = simulate_fleet(grid, path, cfg60, model,
+                           SimConfig(max_steps=N60_STEPS), fleet3,
+                           table=table60)
+    h3 = health(three.log, three.final_state, path, model, N60_STEPS)
+    ds3 = three.final_state.s - fleet3.s
+    print(f"[horizon] N={N60}, tests/test_horizon.py's starts (waypoints 0, "
+          f"70, 140) x {N60_STEPS} steps: progress "
+          f"{[round(float(d), 3) for d in ds3]} m, failed "
+          f"{h3['failed']}, accept {h3['accept']:.4f}, max|e_y| "
+          f"{h3['max_ey']:.4f}", flush=True)
+    if not (bool((ds3 > 0.5).all()) and h3["failed"] == 0
+            and h3["accept"] > 0.8 and h3["max_ey"] < 0.25):
+        raise AssertionError(f"N = {N60}: tests/test_horizon.py's bars "
+                             f"missed on the card: {h3}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res60 = simulate_fleet(grid, path, cfg60, model,
+                           SimConfig(max_steps=N60_STEPS), fleet60,
+                           table=table60)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n60_launches = read_counts()
+    h = health(res60.log, res60.final_state, path, model, N60_STEPS)
+    # a lane that finishes the lap stops (done): starts in the lap's last
+    # metres progress less than 0.5 m, at N = 30 as at N = 60
+    lane_prog = res60.final_state.s - fleet60.s
+    done = res60.final_state.done
+    moving = lane_prog[~done]
+    print(f"[horizon] simulate_fleet N={N60}, B={N60_FLEET_B} x {N60_STEPS} "
+          f"steps from feasible_starts: launches {n60_launches}; "
+          f"{N60_FLEET_B * N60_STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+          f"{fmt_health(h)}; lanes done (lap finished) {int(done.sum())}, "
+          f"least progress of the others {float(moving.min()):.4f} m on "
+          f"{card}", flush=True)
+    if n60_launches != expect(admm_fused=N60_STEPS, corridor_select=N60_STEPS):
+        raise AssertionError(f"N = {N60} fleet launches {n60_launches}")
+    check_health(h, f"N = {N60} fleet")
+    if not (bool((moving > 0.5).all()) and h["accept"] > 0.8
+            and h["max_ey"] < 0.25):
+        raise AssertionError(f"N = {N60} fleet misses its bars: {h}")
 
     def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",

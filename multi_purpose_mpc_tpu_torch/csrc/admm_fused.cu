@@ -9,19 +9,23 @@
 // admm_core.cuh (shared with kernel K3), all built with -fmad=false so
 // a*b+c rounds twice as the twin does.
 //
-// Design: one thread runs one lane (the TPU kernel's lane axis), the whole
-// solve inside the thread, N a runtime argument up to NMAX.  Inputs are
-// read in the public (B, N, ...) layout; nothing is transposed.
+// Design: one warp per lane, up to four lanes per block, the lane's state
+// in shared memory (admm_core.cuh: 14 KB at N = 30), N a runtime argument
+// up to the horizon that shared memory bounds (lanes_per_block).  Thread t
+// assembles stages t, t + 32, ... from the public (B, N, ...) inputs with
+// coalesced loads; the violation floor's interval recursion runs in stage
+// order on the whole warp and thread 0 writes it.
 //
-// What bounds it on an H100: each lane's state (stage data, 31 x 25 Schur
-// inverses, iterates, the polish candidate: ~3.5k floats, ~14 KB) lives in
-// local memory, and B = 4096 lanes are 128 warps, about one per SM with
-// 32-thread blocks.  Every ADMM iteration is a dependent chain of ~4k
-// scalar flops per lane through that local memory, so the kernel is bound
-// by local-memory latency at low occupancy; device-memory traffic is one
-// read of the inputs and one write of the outputs.  Later work: spread a
-// lane's 5x5 stage algebra over several threads and keep factors in
-// registers / shared memory.
+// What bounds it on an H100: the stage recurrences.  Every ADMM iteration
+// runs a forward and a backward substitution over the N + 1 stages, and
+// each stage step is a dependent chain (two 5-term sums in the plain
+// version's left-to-right order, two rounds of shuffles), so one lane's
+// solve is ~12k such steps in a row: latency, not arithmetic or memory.
+// A lane alone takes ~1.7 ms at N = 30; 4 blocks of 4 lanes fit on an SM
+// (shared memory, 128 registers a thread), and B = 4096 runs as two waves
+// of 16 warps per SM, each warp still waiting on its chain most of the
+// time.  Device-memory traffic is one read of the inputs and one write of
+// the outputs.
 
 #include "admm_core.cuh"
 
@@ -33,24 +37,20 @@ struct AdmmParams {  // mirrored by ctypes in ops/admm_cuda.py::_Params
 
 namespace {
 
-__global__ void __launch_bounds__(32) admm_fused_kernel(
+__global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_fused_kernel(
     const float* __restrict__ v_ref, const float* __restrict__ kappa_ref,
     const float* __restrict__ delta_s, const float* __restrict__ lb_c,
     const float* __restrict__ ub_c, const float* __restrict__ kappa_pred,
     const float* __restrict__ x0, const float* __restrict__ W0,
     const float* __restrict__ Zw0, const float* __restrict__ Yeq0,
     const float* __restrict__ Yw0, const float* __restrict__ rho0,
-    float* __restrict__ W_out, float* __restrict__ Zw_out,
-    float* __restrict__ Yeq_out, float* __restrict__ Yw_out,
-    float* __restrict__ rho_out, float* __restrict__ rp_out,
-    float* __restrict__ rd_out, float* __restrict__ floor_out,
-    int B, int N, AdmmParams p) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int S = N + 1;
-  Lane L;
-  Iterate it, pol;
-  L.N = N;
+    Outputs out, float* __restrict__ floor_out, int B, int N,
+    AdmmParams p) {
+  extern __shared__ float4 smem4[];
+  const int w = threadIdx.x / WARP;
+  const int b = blockIdx.x * (blockDim.x / WARP) + w;
+  if (b >= B) return;  // whole warps only: a ragged block idles its tail
+  const Lane L = lane_at(reinterpret_cast<float*>(smem4), w, N);
 
   const float* v = v_ref + (size_t)b * N;
   const float* k = kappa_ref + (size_t)b * N;
@@ -61,57 +61,69 @@ __global__ void __launch_bounds__(32) admm_fused_kernel(
   const float* xb = x0 + (size_t)b * NX;
   const float inf = INFINITY;
 
-  // ---- in-kernel assembly (the TPU kernel's _make_builder) ----
-  for (int i = 0; i < NX; ++i) L.beq[0][i] = -xb[i];
-  for (int n = 0; n < N; ++n) {
-    const float vv = v[n], kk = k[n], dd = ds[n];
-    const float row0[NW] = {1.f, dd, 0.f, 0.f, 0.f};
-    const float row1[NW] = {(-(kk * kk)) * dd, 1.f, 0.f, 0.f, dd};
-    const float row2[NW] = {(-(kk / vv)) * dd, 0.f, 1.f, (-dd) / (vv * vv), 0.f};
-    for (int j = 0; j < NW; ++j) {
-      L.AB[n][0][j] = row0[j];
-      L.AB[n][1][j] = row1[j];
-      L.AB[n][2][j] = row2[j];
-    }
-    L.beq[n + 1][0] = 0.f;
-    L.beq[n + 1][1] = dd * kk;
-    L.beq[n + 1][2] = (-2.0f * dd) / vv;
-  }
-  for (int s = 0; s < S; ++s) {
+  // ---- in-kernel assembly (the TPU kernel's _make_builder), per stage ----
+  for (int s = L.t; s <= N; s += WARP) {
     const bool last = s == N;
-    L.Pd[s][0] = last ? p.QN[0] : p.Q[0];
-    L.Pd[s][1] = last ? p.QN[1] : p.Q[1];
-    L.Pd[s][2] = last ? p.QN[2] : p.Q[2];
-    L.Pd[s][3] = last ? 0.f : p.R[0];
-    L.Pd[s][4] = last ? 0.f : p.R[1];
+    float* beq = L.beq + s * NX;
+    if (s == 0) {
+      for (int i = 0; i < NX; ++i) beq[i] = -xb[i];
+    } else {
+      const float vv = v[s - 1], kk = k[s - 1], dd = ds[s - 1];
+      beq[0] = 0.f;
+      beq[1] = dd * kk;
+      beq[2] = (-2.0f * dd) / vv;
+    }
+    float* ab = L.AB + s * 15;
+    if (last) {
+      for (int e = 0; e < 15; ++e) ab[e] = 0.f;  // stage N has no [A|B]
+    } else {
+      const float vv = v[s], kk = k[s], dd = ds[s];
+      const float row0[NW] = {1.f, dd, 0.f, 0.f, 0.f};
+      const float row1[NW] = {(-(kk * kk)) * dd, 1.f, 0.f, 0.f, dd};
+      const float row2[NW] = {(-(kk / vv)) * dd, 0.f, 1.f, (-dd) / (vv * vv), 0.f};
+      for (int j = 0; j < NW; ++j) {
+        ab[j] = row0[j];
+        ab[NW + j] = row1[j];
+        ab[2 * NW + j] = row2[j];
+      }
+    }
+    float* Pd = L.Pd + s * NW;
+    float* qv = L.qv + s * NW;
+    float* lw = L.lw + s * NW;
+    float* uw = L.uw + s * NW;
+    Pd[0] = last ? p.QN[0] : p.Q[0];
+    Pd[1] = last ? p.QN[1] : p.Q[1];
+    Pd[2] = last ? p.QN[2] : p.Q[2];
+    Pd[3] = last ? 0.f : p.R[0];
+    Pd[4] = last ? 0.f : p.R[1];
     float ey = 0.f;
     if (s > 0) {
       const float ctr = 0.5f * (lbc[s - 1] + ubc[s - 1]);
       ey = (last ? -p.QN[0] : -p.Q[0]) * ctr;
     }
-    L.qv[s][0] = ey;
-    L.qv[s][1] = 0.f;
-    L.qv[s][2] = 0.f;
-    L.qv[s][3] = last ? 0.f : (-p.R[0]) * v[s];
-    L.qv[s][4] = last ? 0.f : (-p.R[1]) * k[s];
-    L.lw[s][0] = s == 0 ? xb[0] : lbc[s - 1];
-    L.uw[s][0] = s == 0 ? xb[0] : ubc[s - 1];
-    L.lw[s][1] = p.xmin[1];
-    L.uw[s][1] = p.xmax[1];
-    L.lw[s][2] = p.xmin[2];
-    L.uw[s][2] = p.xmax[2];
+    qv[0] = ey;
+    qv[1] = 0.f;
+    qv[2] = 0.f;
+    qv[3] = last ? 0.f : (-p.R[0]) * v[s];
+    qv[4] = last ? 0.f : (-p.R[1]) * k[s];
+    lw[0] = s == 0 ? xb[0] : lbc[s - 1];
+    uw[0] = s == 0 ? xb[0] : ubc[s - 1];
+    lw[1] = p.xmin[1];
+    uw[1] = p.xmax[1];
+    lw[2] = p.xmin[2];
+    uw[2] = p.xmax[2];
     if (last) {
-      L.lw[s][3] = -inf; L.uw[s][3] = inf;
-      L.lw[s][4] = -inf; L.uw[s][4] = inf;
+      lw[3] = -inf; uw[3] = inf;
+      lw[4] = -inf; uw[4] = inf;
     } else {
-      L.lw[s][3] = p.v_min;
-      L.uw[s][3] = pmin(sqrtf(p.ay_max / (fabsf(kp[s]) + 1e-12f)), p.v_max);
-      L.lw[s][4] = -p.kmax;
-      L.uw[s][4] = p.kmax;
+      lw[3] = p.v_min;
+      uw[3] = pmin(sqrtf(p.ay_max / (fabsf(kp[s]) + 1e-12f)), p.v_max);
+      lw[4] = -p.kmax;
+      uw[4] = p.kmax;
     }
   }
 
-  // ---- certified violation floor by interval reachability ----
+  // ---- certified violation floor by interval reachability (in order) ----
   {
     float y_lo = xb[0], y_hi = xb[0], p_lo = xb[1], p_hi = xb[1];
     float viol_max = 0.f;
@@ -130,14 +142,13 @@ __global__ void __launch_bounds__(32) admm_fused_kernel(
       y_lo = ny_lo; y_hi = ny_hi; p_lo = np_lo; p_hi = np_hi;
       width_ok = width_ok && ((ubc[n] - lbc[n]) > 0.f);
     }
-    floor_out[b] = width_ok ? viol_max : 0.f;
+    if (L.t == 0) floor_out[b] = width_ok ? viol_max : 0.f;
   }
+  __syncwarp();
 
   // ---- warm start, solve, outputs (admm_core.cuh) ----
-  load_warm(L, it, W0, Zw0, Yeq0, Yw0, b);
-  const float rho = admm_solve(L, it, pol, p.s, rho0[b]);
-  store_outputs(L, it, rho, b, W_out, Zw_out, Yeq_out, Yw_out, rho_out,
-                rp_out, rd_out);
+  load_warm(L, W0, Zw0, Yeq0, Yw0, b);
+  admm_solve(L, p.s, rho0[b], out, b);
 }
 
 }  // namespace
@@ -149,12 +160,21 @@ extern "C" int admm_fused_launch(
     const float* Yw0, const float* rho0, float* W, float* Zw, float* Yeq,
     float* Yw, float* rho, float* rp, float* rd, float* floor_out, int B,
     int N, AdmmParams p, void* stream) {
-  if (N < 1 || N > NMAX) return (int)cudaErrorInvalidValue;
+  const int lanes = N < 1 ? 0 : lanes_per_block(N);
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  const int threads = 32;
-  const int blocks = (B + threads - 1) / threads;
-  admm_fused_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int smem = lanes * lane_floats(N + 1) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admm_fused_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const Outputs out{W, Zw, Yeq, Yw, rho, rp, rd};
+  admm_fused_kernel<<<(B + lanes - 1) / lanes, WARP * lanes, (size_t)smem,
+                      (cudaStream_t)stream>>>(
       v_ref, kappa_ref, delta_s, lb_c, ub_c, kappa_pred, x0, W0, Zw0, Yeq0,
-      Yw0, rho0, W, Zw, Yeq, Yw, rho, rp, rd, floor_out, B, N, p);
+      Yw0, rho0, out, floor_out, B, N, p);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Kernels K1 (fused QP assembly + ADMM + violation floor) and K3 (ADMM on
-pre-assembled QPs), one lane per thread, sharing one ADMM core
+pre-assembled QPs), one warp per lane, sharing one ADMM core
 (``csrc/admm_core.cuh``).
 
 K3 replaces the Pallas TPU kernel ``_make_kernel`` with ``build=None``
@@ -29,17 +29,21 @@ Three implementations of one function live here:
   twin, a CUDA tensor to the kernel (or the wrapper raises).  There is no
   fallback between the two.
 
-What bounds the kernel on the card: one thread runs a whole lane — about
-3.5k floats of stage data, factors (Sinv alone is 31 x 25), iterates and
-the polish candidate — so the state lives in local memory (L1/L2-cached,
-interleaved per thread), and B = 4096 lanes are only 128 warps, one per SM
-at 32-thread blocks.  Each ADMM iteration is a dependent chain of ~4k
-scalar flops per lane through that local memory: the kernel is bound by
-local-memory latency at low occupancy, not by device-memory bandwidth
-(one read of ~1 KB of inputs and one write of ~2 KB of outputs per lane).
-The design keeps the first version simple and exact: a later PR spreads a
-lane over several threads (the 5x5 stage algebra) and keeps the factors
-in registers and shared memory.
+What bounds the kernels on the card: every ADMM iteration runs two
+recurrences over the N + 1 stages (the forward and backward substitutions
+of the block-tridiagonal Schur factor), and the plain version's
+left-to-right sums fix their order, so one lane's solve is a dependent
+chain of ~190 x 2 x 31 stage steps at N = 30.  The design gives each lane
+one warp: the stage-parallel work (assembly, right-hand side, projection,
+dual updates, residuals) runs one stage per thread, the recurrences run
+stage by stage with one matrix row per thread (the factorisation on the
+whole warp at once), and per-lane maxima are warp reductions.  The lane's state (113 floats a stage) lives in
+shared memory, so the horizon is bounded by shared memory alone:
+:data:`N_MAX`.  The kernels stay bound by the chain's latency: ~1.7 ms
+for one lane at N = 30, and at B = 4096 two waves of 16 lanes per SM
+(shared memory and 128 registers a thread bound the resident warps);
+device-memory traffic is one read of ~1 KB of inputs and one write of
+~2 KB of outputs per lane.
 
 Status and ``eps_d`` use the raw-data ``qmax`` bound of the fused TPU
 entry point (not the structured solver's ``scale_d``), and the step size
@@ -61,7 +65,27 @@ from multi_purpose_mpc_tpu_torch.ops.ltv_qp import (
     solver_status, unpack_carry)
 from multi_purpose_mpc_tpu_torch.utils import kernels
 
-N_MAX = 32  # horizon bound of the kernel's per-lane local arrays
+_MAX_SMEM_BYTES = 232448  # dynamic shared memory of one block on Hopper
+
+
+def lane_smem_bytes(N: int) -> int:
+    """Shared memory of one lane at horizon N (``lane_floats`` in
+    csrc/admm_core.cuh): 69 floats a stage rounded up to 16 bytes, then the
+    couplings and the Schur inverses, 16 and 28 floats a stage."""
+    S = N + 1
+    return 4 * (((69 * S + 3) & ~3) + 44 * S)
+
+
+# the longest horizon whose lane fits in one block's shared memory
+N_MAX = max(N for N in range(1, 1024) if lane_smem_bytes(N) <= _MAX_SMEM_BYTES)
+
+
+def _check_horizon(N: int) -> None:
+    if not 1 <= N <= N_MAX:
+        raise ValueError(
+            f"horizon N={N} outside the kernel's 1..{N_MAX}: one lane's "
+            f"solver state takes {lane_smem_bytes(N)} bytes of shared "
+            f"memory, a block at most {_MAX_SMEM_BYTES}")
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +233,7 @@ def solve_mpc_qp_fused_cuda(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0,
     if dev.type != "cuda":
         raise ValueError(f"solve_mpc_qp_fused_cuda needs CUDA tensors, got {dev}")
     Bsz, N = v_ref.shape
-    if not 1 <= N <= N_MAX:
-        raise ValueError(f"horizon N={N} outside the kernel's 1..{N_MAX}")
+    _check_horizon(N)
     W0, Zw0, Yeq0, Yw0 = (t.contiguous() for t in pack_carry(warm))
     ins = [("v_ref", v_ref, (Bsz, N)), ("kappa_ref", kappa_ref, (Bsz, N)),
            ("delta_s", delta_s, (Bsz, N)), ("lb_c", lb_c, (Bsz, N)),
@@ -268,8 +291,7 @@ def solve_ltv_qp_structured_cuda(sq: StageQP, warm: SolverCarry,
         raise ValueError(f"solve_ltv_qp_structured_cuda needs CUDA tensors, "
                          f"got {dev}")
     Bsz, N = sq.AB.shape[:2]
-    if not 1 <= N <= N_MAX:
-        raise ValueError(f"horizon N={N} outside the kernel's 1..{N_MAX}")
+    _check_horizon(N)
     W0, Zw0, Yeq0, Yw0 = (t.contiguous() for t in pack_carry(warm))
     S5, S3 = (Bsz, N + 1, NW), (Bsz, N + 1, NX)
     ins = [("AB", sq.AB, (Bsz, N, NX, NW)), ("beq", sq.beq, S3),

@@ -9,6 +9,7 @@ Tests marked ``cuda`` need an NVIDIA GPU and nvcc; they skip elsewhere
 the CPU-side contract of the wrappers and the build.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -345,3 +346,122 @@ def test_lidar_fleet_on_card_equals_dynamic(cuda_sc):
     for f in dyn.log._fields:
         assert torch.equal(getattr(res.log, f), getattr(dyn.log, f)), f
     assert torch.equal(occ, cuda_sc["grid"].occ.expand_as(occ))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 at any horizon: one warp per lane, bitwise equal to the plain
+# versions.  A reduced budget keeps the plain versions quick; the kernels'
+# arithmetic does not depend on it.
+# ---------------------------------------------------------------------------
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN equal to NaN: where several terms of a max
+    reduction are NaN, the warp's reduction tree may return another NaN
+    payload than a left-to-right maximum (csrc/admm_core.cuh)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _budget(cfg):
+    return dataclasses.replace(cfg.solver, iterations=8, rho_updates=2,
+                               polish_iters=4)
+
+
+def _k1_random(N, B, seed, dev):
+    """K1 inputs for B lanes at horizon N from numpy draws: horizon data in
+    the Sim_Track ranges, corridors of random width (a few collapsed),
+    random warm iterates."""
+    _, _, model, cfg, _, _ = sim_track_preset(ASSETS)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, (B,) + shape)
+    half = u(0.0, 0.08, N) * (u(0, 1, N) > 0.05)
+    ctr = u(-0.05, 0.05, N)
+    x0 = np.stack([u(-0.06, 0.06), u(-0.2, 0.2), np.zeros(B)], -1)
+    warm = init_solver_carry(N, B, cfg.solver.rho, dev)
+    warm.X = t(u(-0.05, 0.05, N + 1, 3))
+    warm.Zx = t(u(-0.05, 0.05, N + 1, 3))
+    warm.Yeq = t(u(-1e-3, 1e-3, N + 1, 3))
+    warm.rho = t(u(0.01, 1.0))
+    return (t(u(0.4, 1.2, N)), t(u(-4.0, 4.0, N)), t(u(0.03, 0.06, N)),
+            t(ctr - half), t(ctr + half), t(x0), t(u(-4.0, 4.0, N)), warm,
+            _budget(cfg), cfg, model)
+
+
+def _k3_random(N, B, seed, dev):
+    """K3 inputs: K1's assembled QPs with per-lane cost weights."""
+    args = _k1_random(N, B, seed, dev)
+    sq, _ = admm_cuda.assemble_stage_qp(*args[:7], args[9], args[10])
+    rng = np.random.default_rng(seed + 1)
+    scale = torch.tensor(rng.uniform(0.5, 2.0, (B, 1, 5)),
+                         dtype=torch.float32, device=dev)
+    sq = dataclasses.replace(
+        sq, Pd=(sq.Pd * scale).contiguous(),
+        **{f: getattr(sq, f).contiguous() for f in ("AB", "beq", "qv", "lw",
+                                                    "uw")})
+    return sq, args[7], args[8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256])
+@pytest.mark.parametrize("N", [1, 30, 31, 32, 33, 60])
+def test_k1_k3_bitwise_equal_plain_at_any_horizon(cuda_device, N, B):
+    """One stage per thread up to N = 31, two from N = 32 (the recurrences
+    cross from thread 31's first stage to thread 0's second), a ragged
+    last block at B = 33."""
+    args = _k1_random(N, B, 10 * N + B, cuda_device)
+    ker = admm_cuda.solve_mpc_qp_fused_cuda(*args)
+    ref = admm_cuda.solve_mpc_qp_fused_plain(*args)
+    sq, warm, solver = _k3_random(N, B, 10 * N + B, cuda_device)
+    ker3 = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+    ref3 = admm_cuda.solve_ltv_qp_structured_plain(sq, warm, solver)
+    torch.cuda.synchronize()
+    names = ("W", "Zw", "Yeq", "Yw", "rho", "r_prim", "r_dual", "floor")
+    for name, a, b in zip(names, ker, ref):
+        assert _same_bits(a, b), f"K1 {name}"
+    for name, a, b in zip(names, ker3, ref3):
+        assert _same_bits(a, b), f"K3 {name}"
+    assert torch.isfinite(ker[0]).all() and torch.isfinite(ker3[0]).all()
+
+
+@pytest.mark.cuda
+def test_k1_k3_nan_lane_stays_in_its_lane(cuda_device):
+    """A NaN in lane 0's horizon data makes lane 0 non-finite and leaves the
+    other lanes of its block (and every other block) bit for bit as they
+    are without it."""
+    N, B = 30, 33
+    args = list(_k1_random(N, B, 7, cuda_device))
+    clean = admm_cuda.solve_mpc_qp_fused_cuda(*args)
+    sq, warm, solver = _k3_random(N, B, 7, cuda_device)
+    clean3 = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+    args[0] = args[0].clone()
+    args[0][0, 3] = float("nan")
+    dirty = admm_cuda.solve_mpc_qp_fused_cuda(*args)
+    sq.qv[0, 5, 0] = float("nan")
+    dirty3 = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+    torch.cuda.synchronize()
+    for a, b in zip(clean + clean3, dirty + dirty3):
+        assert _same_bits(a[1:], b[1:])
+    assert not torch.isfinite(dirty[0][0]).all()
+    assert not torch.isfinite(dirty3[0][0]).all()
+    sol, _ = admm_cuda.finish(dirty, args[0], args[1], args[3], args[4],
+                              args[8], args[9])
+    assert int(sol.status[0]) == 2 and (sol.status[1:] != 2).all()
+
+
+@pytest.mark.cuda
+def test_k1_k3_refuse_horizons_past_n_max(cuda_device):
+    N = admm_cuda.N_MAX + 1
+    args = _k1_random(N, 2, 0, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_cuda.solve_mpc_qp_fused_cuda(*args)
+    sq, warm, solver = _k3_random(N, 2, 0, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+    # the longest horizon the kernels take still runs
+    args = _k1_random(admm_cuda.N_MAX, 2, 0, cuda_device)
+    out = admm_cuda.solve_mpc_qp_fused_cuda(*args)
+    torch.cuda.synchronize()
+    assert out[0].shape == (2, admm_cuda.N_MAX + 1, 5)
