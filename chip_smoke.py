@@ -62,7 +62,21 @@ solver budget — through their public entry points, in phases:
     max |e_y| < 0.25); then ``simulate_fleet`` at B = 1024 from
     ``feasible_starts``: K1 = K2 = 30 launches, bench.py's health gates,
     accept > 0.8, max |e_y| < 0.25, every lane that has not finished the
-    lap progresses > 0.5 m.
+    lap progresses > 0.5 m;
+19. the cyclic-reduction stage solver (``SolverConfig(stage_solver="cr")``):
+    K1-CR and K3-CR bitwise equal to their CR plain versions (NaN equal to
+    NaN) on phase 4's and phase 8's QPs at B = 4096, at B = 1 and 33, and
+    at N = 31 and 60 (B = 256); CR against the Schur kernels on the
+    B = 4096 QPs, the first and after 10 steps, at the bars of
+    tests/test_torch_slice.py for two float32 solvers (acceptance
+    agreement >= 95 %; the speed command U[:, 0, 0] within 1e-3 on >= 85 %
+    of the lanes both accept, median <= 2e-4, max <= 1e-1; see CR_*
+    below); ``[K1-CR scaling]`` and
+    ``[K3-CR scaling]`` beside Schur's times, timed in turns; the CR fleet
+    (static grid, B = 4096 x 50: K1-CR = K2 = 50 launches, bench.py's
+    health gates, accept beside phase 5's); a CR sweep (static grid,
+    B = 4096 x 20, phase 10's weight rows: K3-CR = K2 = 20 and phase 10's
+    gates); an N = 60 CR fleet (B = 1024 x 30, phase 18's bars).
 
 Prints a JSON line with each kernel's launches, error, times and bound
 (``bound_ms`` from the bytes each kernel must move and the float32
@@ -113,6 +127,21 @@ RT_STEPS = 30
 # 192 samples per ray) and its batch for the discovery fleet
 LIDAR_B = 1024
 LOOP_STEPS = 40
+# phase 19: the CR sweep's steps and the horizon of 63 padded stages.  CR
+# against the Schur kernels on the same B = 4096 QPs: two budget-limited
+# float32 solvers that round differently part on unconverged pinch-point
+# lanes (ROADMAP Queue 3: up to 3.8e-2 in v from operation order alone), so
+# the bars are the repo's own for two such solvers on the same QPs
+# (tests/test_torch_slice.py): acceptance agreement >= 95 %, and wherever
+# both accept the speed command U[:, 0, 0] within 1e-3 on >= 85 % of the
+# lanes, median <= 2e-4, max <= 1e-1.  The per-lane bars of the JAX
+# package's CR tests at B = 8 (status equal, U[:, 0, 0] within 3e-3,
+# tests/test_admm_pallas.py) are printed beside them as shares.
+CR_SWEEP_STEPS = 20
+CR_ACCEPT_AGREE = 0.95
+CR_V = (1e-3, 0.85, 2e-4, 1e-1)  # tight bar, its share, median, band
+CR_U0_TOL = 3e-3
+N31 = 31
 # phase 16's bars, set from its first run on the card (0 failed lanes, max
 # |e_y| 0.4344 m; PERF.md section 6).  From an all-free known map the exact
 # corner-span scan marks corner-grazing cells at pinch points, corridors
@@ -386,8 +415,8 @@ def main():
           f"{torch.version.cuda}  nvidia-smi: {card}", flush=True)
 
     from multi_purpose_mpc_tpu_torch.config import (
-        LidarConfig, SimConfig, real_track_preset, sim_track_preset,
-        time_optimal_config)
+        LidarConfig, SimConfig, SolverConfig, real_track_preset,
+        sim_track_preset, time_optimal_config)
     from multi_purpose_mpc_tpu_torch.models.bicycle import init_car_state
     from multi_purpose_mpc_tpu_torch.mpc import (
         WeightSet, kappa_predictions, mpc_locate, mpc_pre_solve,
@@ -421,12 +450,22 @@ def main():
               f"{sec:.2f} s", flush=True)
     print(f"[build] all six in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
-    counted = {"admm_fused": admm_cuda.solve_mpc_qp_fused_cuda,
-               "corridor_select": corridor_cuda.corridor_select_cuda,
-               "admm_structured": admm_cuda.solve_ltv_qp_structured_cuda,
-               "extract_occ": corridor_extract.extract_occ_cuda,
-               "writeback_extract": mapping.writeback_extract_cuda,
-               "writeback_extract_packed": mapping.writeback_extract_packed_cuda}
+    # each kernel's launch counter: (wrapper, attribute); K1 and K3 count
+    # their Schur and their cyclic-reduction instantiations apart
+    counted = {"admm_fused": (admm_cuda.solve_mpc_qp_fused_cuda, "launches"),
+               "admm_fused_cr": (admm_cuda.solve_mpc_qp_fused_cuda,
+                                 "launches_cr"),
+               "corridor_select": (corridor_cuda.corridor_select_cuda,
+                                   "launches"),
+               "admm_structured": (admm_cuda.solve_ltv_qp_structured_cuda,
+                                   "launches"),
+               "admm_structured_cr": (admm_cuda.solve_ltv_qp_structured_cuda,
+                                      "launches_cr"),
+               "extract_occ": (corridor_extract.extract_occ_cuda, "launches"),
+               "writeback_extract": (mapping.writeback_extract_cuda,
+                                     "launches"),
+               "writeback_extract_packed": (
+                   mapping.writeback_extract_packed_cuda, "launches")}
 
     def expect(**launches):
         """The launch counts of a path: the named kernels, 0 for the rest."""
@@ -434,12 +473,12 @@ def main():
 
     def reset_counts():
         torch.cuda.synchronize()
-        for fn in counted.values():
-            fn.launches = 0
+        for fn, attr in counted.values():
+            setattr(fn, attr, 0)
 
     def read_counts():
         torch.cuda.synchronize()
-        return {name: fn.launches for name, fn in counted.items()}
+        return {name: getattr(fn, attr) for name, (fn, attr) in counted.items()}
 
     # ---- scenario ----
     t0 = time.perf_counter()
@@ -1076,9 +1115,229 @@ def main():
             and h["max_ey"] < 0.25):
         raise AssertionError(f"N = {N60} fleet misses its bars: {h}")
 
-    def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+    # ---- phase 19: the cyclic-reduction stage solver ----
+    cr_solver = dataclasses.replace(cfg.solver, stage_solver="cr")
+    cfg_cr = dataclasses.replace(cfg, solver=cr_solver)
+
+    def cr_args(args):
+        """The same inputs with the CR stage solver in their SolverConfig."""
+        return [dataclasses.replace(a, stage_solver="cr")
+                if isinstance(a, SolverConfig) else a for a in args]
+
+    def raw_err(raw_k, raw_p):
+        """Largest |kernel - plain| over the raw outputs (0 where the bits
+        agree, NaN against NaN included)."""
+        err = 0.0
+        for a, b in zip(raw_k, raw_p):
+            same = (a.view(torch.int32) == b.view(torch.int32)) | (
+                torch.isnan(a) & torch.isnan(b))
+            d = torch.where(same, torch.zeros_like(a), (a - b).abs())
+            err = max(err, float(d.nan_to_num(nan=float("inf")).max()))
+        return err
+
+    k1cr_err = k3cr_err = 0.0
+    cfg31 = dataclasses.replace(cfg, N=N31)
+    table31 = static_horizon_table(grid, path, cfg31, model)
+    fleet31 = init_fleet(path, N31, N60_B, e_y0=ey0[:N60_B], wp_id0=wp0[:N60_B])
+    # (label, inputs, whether CR is also held against Schur on them)
+    k1_sets = [("first QP, raw Monte-Carlo draw, B=4096", args_first, True),
+               ("QP after 10 closed-loop steps, B=4096", k1_inputs(warm),
+                True)]
+    k1_sets += [(f"B={n}, N={cfg.N}", [first_lanes(a, n) for a in args_first],
+                 False) for n in BITWISE_B]
+    k1_sets += [(f"B={N60_B}, N={N31}", k1_inputs(fleet31, table31, cfg31),
+                 False),
+                (f"B={N60_B}, N={N60}", [first_lanes(a, N60_B) for a in args60],
+                 False)]
+    w31 = WeightSet(*(first_lanes(x, N60_B) for x in weights))
+    k3_sets = [("first QP, raw Monte-Carlo draw, B=4096",
+                (sq_first, warm_first), True),
+               ("QP after 10 sweep steps, B=4096", k3_inputs(swept10), True)]
+    k3_sets += [(f"B={n}, N={cfg.N}", (first_lanes(sq_first, n),
+                                       first_lanes(warm_first, n)), False)
+                for n in BITWISE_B]
+    k3_sets += [(f"B={N60_B}, N={N31}",
+                 k3_inputs(fleet31, table31, cfg31, w31), False),
+                (f"B={N60_B}, N={N60}", (sq60, warm60), False)]
+
+    def cr_vs_schur(kernel, label, sol_cr, sol_s):
+        """CR against Schur on the same QPs: status and acceptance
+        agreement, the speed command where both accept (the curvature
+        command is cost-flat at R = (0.5, 0): only printed); the bars of
+        CR_* above."""
+        tol = cfg.feas_tol
+        agree = float((sol_cr.status == sol_s.status).float().mean())
+        ok_cr = (sol_cr.status != 2) & (sol_cr.r_prim <= tol)
+        ok_s = (sol_s.status != 2) & (sol_s.r_prim <= tol)
+        acc_agree = float((ok_cr == ok_s).float().mean())
+        acc = ok_cr & ok_s
+        d = (sol_cr.U[:, 0] - sol_s.U[:, 0]).abs()[acc]
+        d_v, d_k = d[:, 0], float(d[:, 1].max())
+        v_max, v_med = float(d_v.max()), float(d_v.median())
+        tight, share, med_bar, band = CR_V
+        within = {x: float((d_v <= x).float().mean()) for x in (tight,
+                                                               CR_U0_TOL)}
+        print(f"[{kernel}] {label}: CR vs Schur kernel: status agree "
+              f"{agree:.5f}, acceptance agree {acc_agree:.5f}; speed "
+              f"U[:, 0, 0] over {int(acc.sum())} lanes both accept: max|d| "
+              f"{v_max:.3e}, median {v_med:.3e}, share within {tight:g} "
+              f"{within[tight]:.5f}, within {CR_U0_TOL:g} "
+              f"{within[CR_U0_TOL]:.5f}; max|d U[:, 0, 1]| (curvature, "
+              f"cost-flat) {d_k:.3e}", flush=True)
+        if (acc_agree < CR_ACCEPT_AGREE or within[tight] < share
+                or v_med > med_bar or v_max > band):
+            raise AssertionError(f"{kernel} disagrees with Schur ({label})")
+
+    for label, args, vs_schur in k1_sets:
+        a = cr_args(args)
+        raw_k = admm_cuda.solve_mpc_qp_fused_cuda(*a)
+        raw_p = admm_cuda.solve_mpc_qp_fused_plain(*a)
+        torch.cuda.synchronize()
+        bitwise_check("K1-CR", label, raw_k, raw_p)
+        k1cr_err = max(k1cr_err, raw_err(raw_k, raw_p))
+        if vs_schur:
+            fin = lambda raw, c: admm_cuda.finish(raw, a[0], a[1], a[3], a[4],
+                                                  c, cfg)[0]
+            cr_vs_schur("K1-CR", label, fin(raw_k, cr_solver),
+                        fin(admm_cuda.solve_mpc_qp_fused_cuda(*args),
+                            cfg.solver))
+    for label, (sq, w), vs_schur in k3_sets:
+        raw_k = admm_cuda.solve_ltv_qp_structured_cuda(sq, w, cr_solver)
+        raw_p = admm_cuda.solve_ltv_qp_structured_plain(sq, w, cr_solver)
+        torch.cuda.synchronize()
+        bitwise_check("K3-CR", label, raw_k, raw_p)
+        k3cr_err = max(k3cr_err, raw_err(raw_k, raw_p))
+        if vs_schur:
+            qmax = sq.qv.abs().flatten(1).amax(1)
+            cr_vs_schur("K3-CR", label,
+                        admm_cuda.finish_solve(raw_k, qmax, cr_solver),
+                        admm_cuda.finish_solve(
+                            admm_cuda.solve_ltv_qp_structured_cuda(
+                                sq, w, cfg.solver), qmax, cfg.solver))
+
+    def cr_scaling(kernel, launch, plain, args, schur_args):
+        """``{B: (ms, bound)}`` of the CR kernel on the first B lanes of
+        ``args``, timed in turns with the Schur kernel on ``schur_args``
+        (CR, Schur, Schur, CR; each time the mean of its two), printed as
+        one line."""
+        rows, line = {}, []
+        for n in SCALING_B:
+            a = [first_lanes(x, n) for x in args]
+            s_ = [first_lanes(x, n) for x in schur_args]
+            t = [cuda_ms(lambda: launch(*x), 10) for x in (a, s_, s_, a)]
+            cr_ms, schur_ms = 0.5 * (t[0] + t[3]), 0.5 * (t[1] + t[2])
+            rows[n] = (cr_ms, bound(nbytes(a, launch(*a)),
+                                    count_ops(lambda: plain(*a))))
+            line.append(f"B={n}: {cr_ms:.4f} (Schur {schur_ms:.4f}; bound "
+                        f"{rows[n][1][0]:.5f}, {rows[n][1][1]})")
+        print(f"[{kernel} scaling] N={cfg.N}, kernel ms per batch: "
+              + ", ".join(line) + f" ({card})", flush=True)
+        return rows
+
+    k1cr_rows = cr_scaling("K1-CR", admm_cuda.solve_mpc_qp_fused_cuda,
+                           admm_cuda.solve_mpc_qp_fused_plain,
+                           cr_args(args_first), args_first)
+    k1cr_ms, k1cr_bound = k1cr_rows[B]
+    k1cr_plain_ms = cuda_ms(lambda: admm_cuda.solve_mpc_qp_fused_plain(
+        *cr_args(args_first)), 1)
+    k3cr_rows = cr_scaling(
+        "K3-CR", admm_cuda.solve_ltv_qp_structured_cuda,
+        admm_cuda.solve_ltv_qp_structured_plain,
+        (sq_first, warm_first, cr_solver), (sq_first, warm_first, cfg.solver))
+    k3cr_ms, k3cr_bound = k3cr_rows[B]
+    k3cr_plain_ms = cuda_ms(lambda: admm_cuda.solve_ltv_qp_structured_plain(
+        sq_first, warm_first, cr_solver), 1)
+    print(f"[K1-CR] kernel {k1cr_ms:.3f} ms, plain {k1cr_plain_ms:.1f} ms; "
+          f"[K3-CR] kernel {k3cr_ms:.3f} ms, plain {k3cr_plain_ms:.1f} ms; "
+          f"bound {k1cr_bound[0]:.4f} / {k3cr_bound[0]:.4f} ms at B={B}, "
+          f"N={cfg.N} ({card})", flush=True)
+
+    # the CR fleet: the main path with the CR stage solver
+    reset_counts()
+    t0 = time.perf_counter()
+    cr_res = simulate_fleet(grid, path, cfg_cr, model,
+                            SimConfig(max_steps=STEPS), fleet, table=table)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cr_launches = read_counts()
+    print(f"[cr fleet] simulate_fleet stage_solver=cr, static grid, B={B} x "
+          f"{STEPS} steps: launches {cr_launches}", flush=True)
+    if cr_launches != expect(admm_fused_cr=STEPS, corridor_select=STEPS):
+        raise AssertionError(f"CR fleet launches {cr_launches}")
+    h_cr = health(cr_res.log, cr_res.final_state, path, model, STEPS)
+    h_s = health(static_log, res.final_state, path, model, STEPS)
+    print(f"[cr fleet] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+          f"{fmt_health(h_cr)}; Schur fleet (phase 5) accept "
+          f"{h_s['accept']:.4f}, solver-failure {h_s['solver_fail']:.5f} on "
+          f"{card}", flush=True)
+    check_health(h_cr, "CR fleet")
+    profile_steps(f"static grid, CR, B={B}", lambda: simulate_fleet(
+        grid, path, cfg_cr, model, SimConfig(max_steps=10), fleet,
+        table=table), 10, dt / STEPS * 1e3, card)
+    del cr_res
+
+    # the CR sweep: per-lane weights reach K3-CR
+    reset_counts()
+    t0 = time.perf_counter()
+    crsw = simulate_fleet(grid, path, cfg_cr, model,
+                          SimConfig(max_steps=CR_SWEEP_STEPS), fleet,
+                          table=table, weights=weights)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    crsw_launches = read_counts()
+    row_accept = []
+    for i, name in enumerate(SWEEP_ROWS):
+        lanes = row_of == i
+        act = crsw.log.active[:, lanes]
+        row_accept.append(
+            f"{name} {float(crsw.log.ok[:, lanes][act].float().mean()):.4f}")
+    print(f"[cr sweep] stage_solver=cr, static grid, WeightSet rows "
+          f"{SWEEP_ROWS} tiled over B={B} x {CR_SWEEP_STEPS} steps: launches "
+          f"{crsw_launches}; accept per row {', '.join(row_accept)}; "
+          f"{B * CR_SWEEP_STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall)",
+          flush=True)
+    if crsw_launches != expect(admm_structured_cr=CR_SWEEP_STEPS,
+                               corridor_select=CR_SWEEP_STEPS):
+        raise AssertionError(f"CR sweep launches {crsw_launches}")
+    check_health(health(crsw.log, crsw.final_state, path, model,
+                        CR_SWEEP_STEPS, lanes=row_of == 0),
+                 "CR sweep, reference lanes")
+    for i, name in enumerate(SWEEP_ROWS[1:], 1):
+        lanes = row_of == i
+        if int(crsw.final_state.failed[lanes].sum()) > SWEEP_FAILED_MAX \
+                * int(lanes.sum()):
+            raise AssertionError(f"CR sweep: failed lanes in row {name}")
+    del crsw
+
+    # the N = 60 CR fleet, phase 18's bars
+    cfg60_cr = dataclasses.replace(cfg60, solver=cr_solver)
+    reset_counts()
+    t0 = time.perf_counter()
+    cr60 = simulate_fleet(grid, path, cfg60_cr, model,
+                          SimConfig(max_steps=N60_STEPS), fleet60,
+                          table=table60)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n60cr_launches = read_counts()
+    h = health(cr60.log, cr60.final_state, path, model, N60_STEPS)
+    moving = (cr60.final_state.s - fleet60.s)[~cr60.final_state.done]
+    print(f"[cr horizon] simulate_fleet stage_solver=cr, N={N60}, "
+          f"B={N60_FLEET_B} x {N60_STEPS} steps: launches {n60cr_launches}; "
+          f"{N60_FLEET_B * N60_STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+          f"{fmt_health(h)}; least progress of the lanes not done "
+          f"{float(moving.min()):.4f} m on {card}", flush=True)
+    if n60cr_launches != expect(admm_fused_cr=N60_STEPS,
+                                corridor_select=N60_STEPS):
+        raise AssertionError(f"N = {N60} CR fleet launches {n60cr_launches}")
+    check_health(h, f"N = {N60} CR fleet")
+    if not (bool((moving > 0.5).all()) and h["accept"] > 0.8
+            and h["max_ey"] < 0.25):
+        raise AssertionError(f"N = {N60} CR fleet misses its bars: {h}")
+
+    def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
+            source=None):
         return {"name": name, "route": "cuda",
-                "source": f"multi_purpose_mpc_tpu_torch/csrc/{name}.cu",
+                "source": f"multi_purpose_mpc_tpu_torch/csrc/{source or name}.cu",
                 "replaces": f"multi_purpose_mpc_tpu/{replaces}",
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -1104,6 +1363,12 @@ def main():
         row("writeback_extract_packed", "ops/mapping_pallas.py:169",
             lidar_launches["writeback_extract_packed"], k56_err, k6_ms,
             k6_plain_ms, k6_bound),
+        row("admm_fused_cr", "ops/admm_pallas.py:509",
+            cr_launches["admm_fused_cr"], k1cr_err, k1cr_ms, k1cr_plain_ms,
+            k1cr_bound, source="admm_fused"),
+        row("admm_structured_cr", "ops/admm_pallas.py:509",
+            crsw_launches["admm_structured_cr"], k3cr_err, k3cr_ms,
+            k3cr_plain_ms, k3cr_bound, source="admm_structured"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

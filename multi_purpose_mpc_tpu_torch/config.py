@@ -6,8 +6,8 @@ imports jax and flax.  So the shared dataclasses and presets are copied; a
 test pins every shared default and both presets to the originals.
 
 Left out, because they select TPU-only code paths the port does not have:
-``SolverConfig.kernel_lanes`` / ``rolled_stage_loops`` / ``stage_solver``
-(Mosaic lane tiles and stage-loop schedules) and
+``SolverConfig.kernel_lanes`` / ``rolled_stage_loops`` (Mosaic lane tiles
+and stage-loop schedules) and
 ``MPCConfig.solver_backend`` / ``extract_backend`` (the port dispatches on
 the device a tensor lives on).
 """
@@ -87,6 +87,13 @@ class SolverConfig:
     # Opt-in: on cost-flat kappa weights converged solves drive worse.
     escalate_lanes: int = 0
     escalate_rho_updates: int = 6
+    # Stage-system solver of kernels K1 and K3 (ops/admm_cuda.py) and their
+    # plain versions: "cr" = block cyclic reduction (ops/cyclic_reduction.py,
+    # log2 depth per solve), any other value ("auto", "schur") = the Schur
+    # recursion, as in the JAX package's kernels.  Both solve the same SPD
+    # stage system; the structured solver ops/ltv_qp.solve_ltv_qp, like the
+    # JAX package's XLA solver, always takes the Schur recursion.
+    stage_solver: str = "auto"
     eps_abs: float = 1e-3
     eps_rel: float = 1e-3
 

@@ -39,6 +39,26 @@
 //   for float4 loads).  V holds the ADMM right-hand side, then the solve
 //   output; Vx the x-rows of the forward substitution.  Odd strides keep
 //   the per-stage accesses of the 32 threads on distinct banks.
+//
+// Stage solvers.  The template parameter CR of admm_solve (and of the
+// functions it calls) picks how the stage system is factored and solved,
+// as SolverConfig.stage_solver does in the plain version:
+// * CR = false: the Schur recursion above (factor, substitute);
+// * CR = true: block cyclic reduction (cr_factor, cr_solve), the plain
+//   version ops/cyclic_reduction.py.  The stages are padded to
+//   M = 2^k - 1 >= S with identity blocks and zero couplings; each level
+//   inverts its even stages (thread t on even stages t, t + 32, ...), then
+//   builds the reduced blocks and couplings of its odd stages, which form
+//   the next level; a solve is the levels down, the last stage, and the
+//   levels up, each level parallel over its stages.  In place of C and
+//   Sinv the lane holds, per padded stage, 16-byte aligned Dinv [M][28]
+//   (the block, reduced in place, then its inverse), Ol [M][16] (the
+//   coupling to the left neighbour of the current level), Or [M][16] (an
+//   eliminated stage's coupling to its right neighbour), X [M][5] (the
+//   right-hand side, then the solution) and U [M][5] (the even stages'
+//   Dinv b).  These arrays are in elimination order (cr_slot): the stages
+//   one level eliminates lie side by side, so its threads read
+//   neighbouring slots.
 
 #pragma once
 
@@ -63,19 +83,30 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int SCALARS = 69;  // floats a stage from AB to Vx (layout above)
 constexpr int C_STRIDE = 16;
 constexpr int SINV_STRIDE = 28;
+constexpr int CR_FLOATS = SINV_STRIDE + 2 * C_STRIDE + 2 * NW;  // a padded stage
 // dynamic shared memory a block may take on Hopper (227 KB)
 constexpr int MAX_SMEM_BYTES = 232448;
 constexpr int MAX_LANES_PER_BLOCK = 4;
 
+// CR's padded stage count M: the least 2^k - 1 >= S
+// (cyclic_reduction.padded_stages).
+__host__ __device__ inline int padded_stages(int S) {
+  int m = 1;
+  while (m < S + 1) m *= 2;
+  return m - 1;
+}
+
 // Floats of shared memory per lane with S stages; mirrored by
 // ops/admm_cuda.py (lane_smem_bytes), which derives N_MAX from it.
-__host__ __device__ inline int lane_floats(int S) {
-  return ((SCALARS * S + 3) & ~3) + (C_STRIDE + SINV_STRIDE) * S;
+__host__ __device__ inline int lane_floats(int S, bool cr) {
+  const int base = (SCALARS * S + 3) & ~3;
+  return cr ? (base + CR_FLOATS * padded_stages(S) + 3) & ~3
+            : base + (C_STRIDE + SINV_STRIDE) * S;
 }
 
 // Lanes per block at horizon N (0: the lane does not fit).
-inline int lanes_per_block(int N) {
-  const int bytes = lane_floats(N + 1) * 4;
+inline int lanes_per_block(int N, bool cr) {
+  const int bytes = lane_floats(N + 1, cr) * 4;
   const int fit = MAX_SMEM_BYTES / bytes;
   return fit < MAX_LANES_PER_BLOCK ? fit : MAX_LANES_PER_BLOCK;
 }
@@ -98,21 +129,24 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One lane's shared-memory arrays and the thread's place in its warp.
+// One lane's shared-memory arrays and the thread's place in its warp
+// (C, Sinv: the Schur recursion; M, Dinv .. U: cyclic reduction).
 struct Lane {
-  int N, S, t;
+  int N, S, t, M;
   float *AB, *beq, *Pd, *qv, *lw, *uw, *rho_w, *W, *Zw, *Yeq, *Yw, *V, *Vx,
-      *C, *Sinv;
+      *C, *Sinv, *Dinv, *Ol, *Or, *X, *U;
 };
 
 // The lane of warp `w` in the block's dynamic shared memory.
+template <bool CR>
 __device__ __forceinline__ Lane lane_at(float* smem, int w, int N) {
   const int S = N + 1;
   Lane L;
   L.N = N;
   L.S = S;
   L.t = threadIdx.x & (WARP - 1);
-  float* p = smem + (size_t)w * lane_floats(S);
+  L.M = padded_stages(S);
+  float* p = smem + (size_t)w * lane_floats(S, CR);
   L.AB = p;      p += 15 * S;
   L.beq = p;     p += NX * S;
   L.Pd = p;      p += NW * S;
@@ -126,10 +160,31 @@ __device__ __forceinline__ Lane lane_at(float* smem, int w, int N) {
   L.Yw = p;      p += NW * S;
   L.V = p;       p += NW * S;
   L.Vx = p;
-  p = smem + (size_t)w * lane_floats(S) + ((SCALARS * S + 3) & ~3);
-  L.C = p;       p += C_STRIDE * S;
-  L.Sinv = p;
+  p = smem + (size_t)w * lane_floats(S, CR) + ((SCALARS * S + 3) & ~3);
+  if (CR) {
+    L.C = L.Sinv = nullptr;
+    L.Dinv = p;  p += SINV_STRIDE * L.M;
+    L.Ol = p;    p += C_STRIDE * L.M;
+    L.Or = p;    p += C_STRIDE * L.M;
+    L.X = p;     p += NW * L.M;
+    L.U = p;
+  } else {
+    L.C = p;     p += C_STRIDE * S;
+    L.Sinv = p;
+    L.Dinv = L.Ol = L.Or = L.X = L.U = nullptr;
+  }
   return L;
+}
+
+// Slot of padded stage i in CR's arrays: elimination order.  Stage i is
+// eliminated at level l = the number of trailing one bits of i, as even
+// stage u = (i + 1) >> (l + 1) of that level; the levels before l
+// eliminated (M + 1) - ((M + 1) >> l) stages.  M1 = M + 1.  The last
+// stage, (M - 1) / 2, takes slot M - 1.
+__device__ __forceinline__ int cr_slot(int M1, int i) {
+  const int v = i + 1;
+  const int l = __ffs(v) - 1;
+  return (M1 - (M1 >> l)) + (v >> (l + 1));
 }
 
 // (Aeq w)[s][i] of the stage-layout vector W: r_0 = -x_0,
@@ -214,9 +269,37 @@ __device__ __forceinline__ void load15(const float* p, float (&m)[NX][NW]) {
     for (int j = 0; j < NW; ++j) m[i][j] = v[i * NW + j];
 }
 
-// Step sizes, couplings C_n and the Schur diagonal blocks of one factor
-// (stage-parallel; each D_n goes into Sinv's slot n).  polish: boost the
-// rows whose Zw sits at a finite bound.
+__device__ __forceinline__ void store25(float* p, const float (&m)[NW][NW]) {
+  float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    q[k] = make_float4(m[(4 * k) / NW][(4 * k) % NW],
+                       m[(4 * k + 1) / NW][(4 * k + 1) % NW],
+                       m[(4 * k + 2) / NW][(4 * k + 2) % NW],
+                       m[(4 * k + 3) / NW][(4 * k + 3) % NW]);
+  p[24] = m[4][4];
+}
+
+__device__ __forceinline__ void store15(float* p, const float (&m)[NX][NW]) {
+  float4* q = reinterpret_cast<float4*>(p);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    q[k] = make_float4(m[(4 * k) / NW][(4 * k) % NW],
+                       m[(4 * k + 1) / NW][(4 * k + 1) % NW],
+                       m[(4 * k + 2) / NW][(4 * k + 2) % NW],
+                       m[(4 * k + 3) / NW][(4 * k + 3) % NW]);
+  p[12] = m[2][2];
+  p[13] = m[2][3];
+  p[14] = m[2][4];
+}
+
+// Step sizes, couplings C_n and the diagonal blocks of one factor
+// (stage-parallel).  Schur: D_n into Sinv's slot n, C_n into C's.  CR: D_n
+// into Dinv's slot of stage n, C_n into Ol's slot of stage n + 1 (the
+// coupling of stage n + 1 to stage n), identity blocks and zero couplings
+// on the pad stages.  polish: boost the rows whose Zw sits at a finite
+// bound.
+template <bool CR>
 __device__ __forceinline__ void prepare_factor(const Lane& L,
                                                const SolverParams& p,
                                                float rho, bool polish) {
@@ -239,10 +322,12 @@ __device__ __forceinline__ void prepare_factor(const Lane& L,
       rw[j] = r;
       L.rho_w[s * NW + j] = r;
     }
-    float* D = L.Sinv + s * SINV_STRIDE;
+    float* D = CR ? L.Dinv + cr_slot(L.M + 1, s) * SINV_STRIDE
+                  : L.Sinv + s * SINV_STRIDE;
     if (s < N) {
       const float* ab = L.AB + s * 15;
-      float* c = L.C + s * C_STRIDE;
+      float* c = CR ? L.Ol + cr_slot(L.M + 1, s + 1) * C_STRIDE
+                    : L.C + s * C_STRIDE;
 #pragma unroll
       for (int e = 0; e < 15; ++e) c[e] = -(rho_eq * ab[e]);
 #pragma unroll
@@ -271,6 +356,16 @@ __device__ __forceinline__ void prepare_factor(const Lane& L,
         D[i * NW + i] = ((L.Pd[s * NW + i] + p.sigma) + rw[i]) + rho_eq;
 #pragma unroll
       for (int i = NX; i < NW; ++i) D[i * NW + i] = 1.f;
+    }
+  }
+  if (CR) {
+    for (int s = L.S + L.t; s < L.M; s += WARP) {
+      const int k = cr_slot(L.M + 1, s);
+#pragma unroll
+      for (int e = 0; e < NW * NW; ++e)
+        L.Dinv[k * SINV_STRIDE + e] = (e % (NW + 1) == 0) ? 1.f : 0.f;
+#pragma unroll
+      for (int e = 0; e < NX * NW; ++e) L.Ol[k * C_STRIDE + e] = 0.f;
     }
   }
   __syncwarp();
@@ -397,6 +492,240 @@ __device__ __forceinline__ void substitute(const Lane& L) {
   __syncwarp();
 }
 
+// ---- block cyclic reduction (CR = true) ----
+//
+// Level l holds mc = ((M + 1) >> l) - 1 stages: e = (M + 1) >> (l + 1)
+// even ones, in slots off .. off + e - 1 (off = (M + 1) - ((M + 1) >> l)),
+// and mp = e - 1 odd ones; odd stage u is padded stage
+// ((u + 1) << (l + 1)) - 1, between even stages u and u + 1.  Every product
+// sums its terms in the plain version's order (ops/cyclic_reduction.py),
+// and skips only terms that the plain version adds as +0 (x - 0 = x bit
+// for bit, NaN and -0 included).
+
+// Factor: per level, invert the even stages' blocks in place; then each
+// odd stage u, with OL = its coupling to even stage u, OR = even stage
+// u + 1's coupling to it, and Dinv_u, Dinv_u+1:
+//   D' = (D - OL Dinv_u OL' [x-x block]) - OR' Dinv_u+1[x, x] OR,
+//   O' = -(OL Dinv_u[:, x] OR_prev)   (OR_prev: even stage u's left
+// coupling; u = 0 has no left neighbour and its O' is never read),
+// keeping OL in even stage u's Or slot for the solve.
+__device__ __forceinline__ void cr_factor(const Lane& L) {
+  const int M1 = L.M + 1;
+  for (int l = 0; (M1 >> l) > 2; ++l) {
+    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
+    for (int u = L.t; u < e; u += WARP) {
+      float a[NW][NW], inv[NW][NW];
+      float* d = L.Dinv + (off + u) * SINV_STRIDE;
+      load25(d, a);
+      gj_inverse(a, inv);
+      store25(d, inv);
+    }
+    __syncwarp();
+    for (int u = L.t; u < mp; u += WARP) {
+      // the reduced block is updated in place in shared memory (a float
+      // stored and reloaded rounds nothing), which keeps the registers of
+      // this step to one 3x5 coupling and one partial product
+      const int q = cr_slot(M1, ((u + 1) << (l + 1)) - 1);
+      const float* di0 = L.Dinv + (off + u) * SINV_STRIDE;
+      const float* di1 = di0 + SINV_STRIDE;
+      float* D = L.Dinv + q * SINV_STRIDE;
+      float OL[NX][NW];
+      load15(L.Ol + q * C_STRIDE, OL);
+      store15(L.Or + (off + u) * C_STRIDE, OL);
+      {  // D[x, x] -= OL (Dinv_u OL')
+        float X[NW][NX];
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            float acc = di0[i * NW] * OL[j][0];
+#pragma unroll
+            for (int k = 1; k < NW; ++k) acc = acc + di0[i * NW + k] * OL[j][k];
+            X[i][j] = acc;
+          }
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            float acc = OL[i][0] * X[0][j];
+#pragma unroll
+            for (int k = 1; k < NW; ++k) acc = acc + OL[i][k] * X[k][j];
+            D[i * NW + j] = D[i * NW + j] - acc;
+          }
+      }
+      {  // D -= OR' (Dinv_u+1[x, x] OR)
+        float OR[NX][NW], Y[NX][NW];
+        load15(L.Ol + (off + u + 1) * C_STRIDE, OR);
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            float acc = di1[i * NW] * OR[0][j];
+#pragma unroll
+            for (int k = 1; k < NX; ++k) acc = acc + di1[i * NW + k] * OR[k][j];
+            Y[i][j] = acc;
+          }
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            float acc = OR[0][i] * Y[0][j];
+#pragma unroll
+            for (int k = 1; k < NX; ++k) acc = acc + OR[k][i] * Y[k][j];
+            D[i * NW + j] = D[i * NW + j] - acc;
+          }
+      }
+      if (u > 0) {  // O' = -(OL (Dinv_u[:, x] OR_prev)), column by column
+        float ORp[NX][NW], O[NX][NW];
+        load15(L.Ol + (off + u) * C_STRIDE, ORp);
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          float z[NW];
+#pragma unroll
+          for (int i = 0; i < NW; ++i) {
+            float acc = di0[i * NW] * ORp[0][j];
+#pragma unroll
+            for (int k = 1; k < NX; ++k) acc = acc + di0[i * NW + k] * ORp[k][j];
+            z[i] = acc;
+          }
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            float acc = OL[i][0] * z[0];
+#pragma unroll
+            for (int k = 1; k < NW; ++k) acc = acc + OL[i][k] * z[k];
+            O[i][j] = -acc;
+          }
+        }
+        store15(L.Ol + q * C_STRIDE, O);
+      }
+    }
+    __syncwarp();
+  }
+  if (L.t == 0) {  // the last level's one stage
+    float a[NW][NW], inv[NW][NW];
+    float* d = L.Dinv + (L.M - 1) * SINV_STRIDE;
+    load25(d, a);
+    gj_inverse(a, inv);
+    store25(d, inv);
+  }
+  __syncwarp();
+}
+
+// w = Dinv b for the 5x5 inverse at `di` (left-to-right sums)
+__device__ __forceinline__ void cr_mv(const float* di, const float (&b)[NW],
+                                      float (&w)[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    float acc = di[i * NW] * b[0];
+#pragma unroll
+    for (int j = 1; j < NW; ++j) acc = acc + di[i * NW + j] * b[j];
+    w[i] = acc;
+  }
+}
+
+// M w = V.  Down: per level, U_u = Dinv_u X_u on the even stages, then
+// each odd stage X -= pad(OL U_u) and X -= OR' U_u+1[x]; the last stage
+// X = Dinv X; up: per level, each even stage X_u = Dinv_u ((X_u -
+// pad(OR_prev w_left)) - OL_u' w_right[x]), the odd neighbours solved.
+__device__ __forceinline__ void cr_solve(const Lane& L) {
+  const int M1 = L.M + 1;
+  for (int s = L.t; s < L.M; s += WARP) {
+    float* x = L.X + cr_slot(M1, s) * NW;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) x[j] = s < L.S ? L.V[s * NW + j] : 0.f;
+  }
+  __syncwarp();
+  int l = 0;
+  for (; (M1 >> l) > 2; ++l) {
+    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
+    for (int u = L.t; u < e; u += WARP) {
+      const int k = off + u;
+      float b[NW], w[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) b[j] = L.X[k * NW + j];
+      cr_mv(L.Dinv + k * SINV_STRIDE, b, w);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) L.U[k * NW + j] = w[j];
+    }
+    __syncwarp();
+    for (int u = L.t; u < mp; u += WARP) {
+      const int q = cr_slot(M1, ((u + 1) << (l + 1)) - 1);
+      const float* OL = L.Or + (off + u) * C_STRIDE;
+      const float* OR = L.Ol + (off + u + 1) * C_STRIDE;
+      const float* u0 = L.U + (off + u) * NW;
+      const float* u1 = u0 + NW;
+      float* x = L.X + q * NW;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float acc = OL[i * NW] * u0[0];
+#pragma unroll
+        for (int j = 1; j < NW; ++j) acc = acc + OL[i * NW + j] * u0[j];
+        x[i] = x[i] - acc;
+      }
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        float acc = OR[j] * u1[0];
+        acc = acc + OR[NW + j] * u1[1];
+        acc = acc + OR[2 * NW + j] * u1[2];
+        x[j] = x[j] - acc;
+      }
+    }
+    __syncwarp();
+  }
+  if (L.t == 0) {
+    float b[NW], w[NW];
+    float* x = L.X + (L.M - 1) * NW;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) b[j] = x[j];
+    cr_mv(L.Dinv + (L.M - 1) * SINV_STRIDE, b, w);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) x[j] = w[j];
+  }
+  __syncwarp();
+  for (--l; l >= 0; --l) {
+    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
+    for (int u = L.t; u < e; u += WARP) {
+      const int k = off + u;
+      float b[NW], w[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) b[j] = L.X[k * NW + j];
+      if (u > 0) {  // the odd neighbour on the left
+        const float* O = L.Ol + k * C_STRIDE;
+        const float* wl = L.X + cr_slot(M1, (u << (l + 1)) - 1) * NW;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          float acc = O[i * NW] * wl[0];
+#pragma unroll
+          for (int j = 1; j < NW; ++j) acc = acc + O[i * NW + j] * wl[j];
+          b[i] = b[i] - acc;
+        }
+      }
+      if (u < mp) {  // the odd neighbour on the right
+        const float* O = L.Or + k * C_STRIDE;
+        const float* wr = L.X + cr_slot(M1, ((u + 1) << (l + 1)) - 1) * NW;
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          float acc = O[j] * wr[0];
+          acc = acc + O[NW + j] * wr[1];
+          acc = acc + O[2 * NW + j] * wr[2];
+          b[j] = b[j] - acc;
+        }
+      }
+      cr_mv(L.Dinv + k * SINV_STRIDE, b, w);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) L.X[k * NW + j] = w[j];
+    }
+    __syncwarp();
+  }
+  for (int s = L.t; s < L.S; s += WARP) {
+    const float* x = L.X + cr_slot(M1, s) * NW;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) L.V[s * NW + j] = x[j];
+  }
+  __syncwarp();
+}
+
+template <bool CR>
 __device__ __forceinline__ void iteration(const Lane& L,
                                           const SolverParams& p,
                                           float rho_eq) {
@@ -418,7 +747,10 @@ __device__ __forceinline__ void iteration(const Lane& L,
     }
   }
   __syncwarp();
-  substitute(L);
+  if constexpr (CR)
+    cr_solve(L);
+  else
+    substitute(L);
   // relaxation, projection and dual updates, stage-parallel
   for (int s = L.t; s < L.S; s += WARP) {
 #pragma unroll
@@ -442,13 +774,17 @@ __device__ __forceinline__ void iteration(const Lane& L,
   __syncwarp();
 }
 
+template <bool CR>
 __device__ __forceinline__ void run_iters(const Lane& L,
                                           const SolverParams& p, int iters,
                                           float rho, bool polish) {
-  prepare_factor(L, p, rho, polish);
-  factor(L);
+  prepare_factor<CR>(L, p, rho, polish);
+  if constexpr (CR)
+    cr_factor(L);
+  else
+    factor(L);
   const float rho_eq = rho * p.eq_scale;
-  for (int k = 0; k < iters; ++k) iteration(L, p, rho_eq);
+  for (int k = 0; k < iters; ++k) iteration<CR>(L, p, rho_eq);
 }
 
 __device__ __forceinline__ float primal_res(const Lane& L) {
@@ -560,18 +896,19 @@ __device__ __forceinline__ void store_iterate(const Lane& L,
 // iterations, then the guarded active-set polish; writes the iterate, rho
 // and the residuals.  The pre-polish iterate is written to the outputs
 // first and overwritten only if the polish lowers the primal residual, so
-// the lane needs no second copy of its state.
+// the lane needs no second copy of its state.  CR: the stage solver.
+template <bool CR>
 __device__ __forceinline__ void admm_solve(const Lane& L,
                                            const SolverParams& p, float rho,
                                            const Outputs& o, int b) {
   for (int round = 0; round < p.rho_updates; ++round) {
-    run_iters(L, p, p.iterations, rho, false);
+    run_iters<CR>(L, p, p.iterations, rho, false);
     rho = adapt_rho(L, rho);
   }
   store_iterate(L, o, b);
   float rp = primal_res(L), rd = dual_res(L);
   if (p.polish_iters > 0) {
-    run_iters(L, p, p.polish_iters, rho, true);
+    run_iters<CR>(L, p, p.polish_iters, rho, true);
     const float rp_pol = primal_res(L);
     if (rp_pol < rp) {  // warp-uniform: every thread holds the same maxima
       store_iterate(L, o, b);

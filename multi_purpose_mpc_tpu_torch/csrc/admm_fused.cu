@@ -26,6 +26,13 @@
 // of 16 warps per SM, each warp still waiting on its chain most of the
 // time.  Device-memory traffic is one read of the inputs and one write of
 // the outputs.
+//
+// SolverConfig(stage_solver="cr") launches the instantiation with block
+// cyclic reduction as the stage solver (admm_core.cuh: cr_factor,
+// cr_solve; the TPU kernel's factor_cr / solve_cr, admm_pallas.py:509-659):
+// 2 x log2(M + 1) level steps a solve instead of 2 x N stage steps, each
+// level parallel over its stages, at about twice the block arithmetic and
+// 17 KB of shared memory a lane at N = 30 (M = 31 padded stages).
 
 #include "admm_core.cuh"
 
@@ -37,6 +44,7 @@ struct AdmmParams {  // mirrored by ctypes in ops/admm_cuda.py::_Params
 
 namespace {
 
+template <bool CR>
 __global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_fused_kernel(
     const float* __restrict__ v_ref, const float* __restrict__ kappa_ref,
     const float* __restrict__ delta_s, const float* __restrict__ lb_c,
@@ -50,7 +58,7 @@ __global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_fused_kernel(
   const int w = threadIdx.x / WARP;
   const int b = blockIdx.x * (blockDim.x / WARP) + w;
   if (b >= B) return;  // whole warps only: a ragged block idles its tail
-  const Lane L = lane_at(reinterpret_cast<float*>(smem4), w, N);
+  const Lane L = lane_at<CR>(reinterpret_cast<float*>(smem4), w, N);
 
   const float* v = v_ref + (size_t)b * N;
   const float* k = kappa_ref + (size_t)b * N;
@@ -148,33 +156,49 @@ __global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_fused_kernel(
 
   // ---- warm start, solve, outputs (admm_core.cuh) ----
   load_warm(L, W0, Zw0, Yeq0, Yw0, b);
-  admm_solve(L, p.s, rho0[b], out, b);
+  admm_solve<CR>(L, p.s, rho0[b], out, b);
+}
+
+// Launch one instantiation (CR: the stage solver) on `stream`.
+template <bool CR>
+int launch(const float* v_ref, const float* kappa_ref, const float* delta_s,
+           const float* lb_c, const float* ub_c, const float* kappa_pred,
+           const float* x0, const float* W0, const float* Zw0,
+           const float* Yeq0, const float* Yw0, const float* rho0,
+           const Outputs& out, float* floor_out, int B, int N,
+           const AdmmParams& p, cudaStream_t stream) {
+  const int lanes = N < 1 ? 0 : lanes_per_block(N, CR);
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  const int smem = lanes * lane_floats(N + 1, CR) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_fused_kernel<CR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admm_fused_kernel<CR>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  admm_fused_kernel<CR><<<(B + lanes - 1) / lanes, WARP * lanes,
+                          (size_t)smem, stream>>>(
+      v_ref, kappa_ref, delta_s, lb_c, ub_c, kappa_pred, x0, W0, Zw0, Yeq0,
+      Yw0, rho0, out, floor_out, B, N, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// cyclic_reduction: 0 = the Schur recursion, 1 = block cyclic reduction
+// (SolverConfig.stage_solver == "cr").
 extern "C" int admm_fused_launch(
     const float* v_ref, const float* kappa_ref, const float* delta_s,
     const float* lb_c, const float* ub_c, const float* kappa_pred,
     const float* x0, const float* W0, const float* Zw0, const float* Yeq0,
     const float* Yw0, const float* rho0, float* W, float* Zw, float* Yeq,
     float* Yw, float* rho, float* rp, float* rd, float* floor_out, int B,
-    int N, AdmmParams p, void* stream) {
-  const int lanes = N < 1 ? 0 : lanes_per_block(N);
-  if (lanes < 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
-  const int smem = lanes * lane_floats(N + 1) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admm_fused_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
+    int N, int cyclic_reduction, AdmmParams p, void* stream) {
   const Outputs out{W, Zw, Yeq, Yw, rho, rp, rd};
-  admm_fused_kernel<<<(B + lanes - 1) / lanes, WARP * lanes, (size_t)smem,
-                      (cudaStream_t)stream>>>(
-      v_ref, kappa_ref, delta_s, lb_c, ub_c, kappa_pred, x0, W0, Zw0, Yeq0,
-      Yw0, rho0, out, floor_out, B, N, p);
-  return (int)cudaGetLastError();
+  const auto run = cyclic_reduction ? launch<true> : launch<false>;
+  return run(v_ref, kappa_ref, delta_s, lb_c, ub_c, kappa_pred, x0, W0, Zw0,
+             Yeq0, Yw0, rho0, out, floor_out, B, N, p, (cudaStream_t)stream);
 }

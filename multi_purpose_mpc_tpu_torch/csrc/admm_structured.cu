@@ -19,11 +19,14 @@
 // K1's bound: the latency of the stage recurrences of every ADMM
 // iteration, ~12k dependent stage steps per lane, with 16 lanes resident
 // per SM.
+// SolverConfig(stage_solver="cr") launches the instantiation with block
+// cyclic reduction as the stage solver, as in kernel K1.
 
 #include "admm_core.cuh"
 
 namespace {
 
+template <bool CR>
 __global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_structured_kernel(
     const float* __restrict__ AB, const float* __restrict__ beq,
     const float* __restrict__ Pd, const float* __restrict__ qv,
@@ -36,7 +39,7 @@ __global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_structured_ke
   const int w = threadIdx.x / WARP;
   const int b = blockIdx.x * (blockDim.x / WARP) + w;
   if (b >= B) return;  // whole warps only: a ragged block idles its tail
-  const Lane L = lane_at(reinterpret_cast<float*>(smem4), w, N);
+  const Lane L = lane_at<CR>(reinterpret_cast<float*>(smem4), w, N);
   const int S = N + 1;
 
   // ---- the lane's QP: AB (N, 3, 5), beq (N+1, 3), rest (N+1, 5) ----
@@ -54,32 +57,45 @@ __global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_structured_ke
   __syncwarp();
 
   load_warm(L, W0, Zw0, Yeq0, Yw0, b);
-  admm_solve(L, p, rho0[b], out, b);
+  admm_solve<CR>(L, p, rho0[b], out, b);
+}
+
+template <bool CR>
+int launch(const float* AB, const float* beq, const float* Pd,
+           const float* qv, const float* lw, const float* uw,
+           const float* W0, const float* Zw0, const float* Yeq0,
+           const float* Yw0, const float* rho0, const Outputs& out, int B,
+           int N, const SolverParams& p, cudaStream_t stream) {
+  const int lanes = N < 1 ? 0 : lanes_per_block(N, CR);
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  const int smem = lanes * lane_floats(N + 1, CR) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      admm_structured_kernel<CR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admm_structured_kernel<CR>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  admm_structured_kernel<CR><<<(B + lanes - 1) / lanes, WARP * lanes,
+                               (size_t)smem, stream>>>(
+      AB, beq, Pd, qv, lw, uw, W0, Zw0, Yeq0, Yw0, rho0, out, B, N, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// cyclic_reduction: 0 = the Schur recursion, 1 = block cyclic reduction
+// (SolverConfig.stage_solver == "cr").
 extern "C" int admm_structured_launch(
     const float* AB, const float* beq, const float* Pd, const float* qv,
     const float* lw, const float* uw, const float* W0, const float* Zw0,
     const float* Yeq0, const float* Yw0, const float* rho0, float* W,
     float* Zw, float* Yeq, float* Yw, float* rho, float* rp, float* rd,
-    int B, int N, SolverParams p, void* stream) {
-  const int lanes = N < 1 ? 0 : lanes_per_block(N);
-  if (lanes < 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
-  const int smem = lanes * lane_floats(N + 1) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_structured_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admm_structured_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
+    int B, int N, int cyclic_reduction, SolverParams p, void* stream) {
   const Outputs out{W, Zw, Yeq, Yw, rho, rp, rd};
-  admm_structured_kernel<<<(B + lanes - 1) / lanes, WARP * lanes,
-                           (size_t)smem, (cudaStream_t)stream>>>(
-      AB, beq, Pd, qv, lw, uw, W0, Zw0, Yeq0, Yw0, rho0, out, B, N, p);
-  return (int)cudaGetLastError();
+  const auto run = cyclic_reduction ? launch<true> : launch<false>;
+  return run(AB, beq, Pd, qv, lw, uw, W0, Zw0, Yeq0, Yw0, rho0, out, B, N, p,
+             (cudaStream_t)stream);
 }

@@ -45,6 +45,15 @@ for one lane at N = 30, and at B = 4096 two waves of 16 lanes per SM
 device-memory traffic is one read of ~1 KB of inputs and one write of
 ~2 KB of outputs per lane.
 
+``SolverConfig(stage_solver="cr")`` selects block cyclic reduction as the
+stage solver of both kernels and of both plain versions (the TPU kernel's
+``factor_cr`` / ``solve_cr``; plain version :mod:`.cyclic_reduction`): a
+solve is 2 x log2(M + 1) level steps over the M = 2^k - 1 >= N + 1 padded
+stages, each level parallel over its stages, instead of 2 x N stage steps.
+Each wrapper counts the launches of its Schur kernel (``launches``) and of
+its CR kernel (``launches_cr``) apart.  A CR lane holds 69 floats a stage
+and 70 a padded stage, so its horizon bound is :data:`N_MAX_CR`.
+
 Status and ``eps_d`` use the raw-data ``qmax`` bound of the fused TPU
 entry point (not the structured solver's ``scale_d``), and the step size
 starts from the carried ``warm.rho``, as the fused TPU kernel does.
@@ -59,6 +68,7 @@ import torch
 
 from multi_purpose_mpc_tpu_torch.config import MPCConfig, ModelConfig, SolverConfig
 from multi_purpose_mpc_tpu_torch.ops.constraints import Corridor
+from multi_purpose_mpc_tpu_torch.ops.cyclic_reduction import padded_stages
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import (
     LTVQP, NW, NX, LTVSolution, SolverCarry, StageQP, _amax, admm_rounds,
     dual_residual, init_solver_carry, pack_carry, pack_qp, primal_residual,
@@ -68,24 +78,32 @@ from multi_purpose_mpc_tpu_torch.utils import kernels
 _MAX_SMEM_BYTES = 232448  # dynamic shared memory of one block on Hopper
 
 
-def lane_smem_bytes(N: int) -> int:
+def lane_smem_bytes(N: int, cr: bool = False) -> int:
     """Shared memory of one lane at horizon N (``lane_floats`` in
     csrc/admm_core.cuh): 69 floats a stage rounded up to 16 bytes, then the
-    couplings and the Schur inverses, 16 and 28 floats a stage."""
+    Schur recursion's couplings and inverses, 16 and 28 floats a stage, or
+    cyclic reduction's 70 floats a padded stage (rounded up to 16 bytes)."""
     S = N + 1
-    return 4 * (((69 * S + 3) & ~3) + 44 * S)
+    base = (69 * S + 3) & ~3
+    if cr:
+        return 4 * ((base + 70 * padded_stages(S) + 3) & ~3)
+    return 4 * (base + 44 * S)
 
 
-# the longest horizon whose lane fits in one block's shared memory
+# the longest horizons whose lane fits in one block's shared memory
 N_MAX = max(N for N in range(1, 1024) if lane_smem_bytes(N) <= _MAX_SMEM_BYTES)
+N_MAX_CR = max(N for N in range(1, 1024)
+               if lane_smem_bytes(N, True) <= _MAX_SMEM_BYTES)
 
 
-def _check_horizon(N: int) -> None:
-    if not 1 <= N <= N_MAX:
+def _check_horizon(N: int, cr: bool = False) -> None:
+    n_max = N_MAX_CR if cr else N_MAX
+    if not 1 <= N <= n_max:
+        solver = "cyclic reduction" if cr else "Schur"
         raise ValueError(
-            f"horizon N={N} outside the kernel's 1..{N_MAX}: one lane's "
-            f"solver state takes {lane_smem_bytes(N)} bytes of shared "
-            f"memory, a block at most {_MAX_SMEM_BYTES}")
+            f"horizon N={N} outside the {solver} kernel's 1..{n_max}: one "
+            f"lane's solver state takes {lane_smem_bytes(N, cr)} bytes of "
+            f"shared memory, a block at most {_MAX_SMEM_BYTES}")
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +223,8 @@ def _params(cfg: SolverConfig, mpc_cfg: MPCConfig, model_cfg: ModelConfig):
 def _library():
     lib = kernels.load("admm_fused")
     fn = lib.admm_fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int, ctypes.c_int,
-                                           _Params, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [
+        _Params, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -226,14 +244,16 @@ def solve_mpc_qp_fused_cuda(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0,
                             kappa_pred, warm: SolverCarry,
                             cfg: SolverConfig, mpc_cfg: MPCConfig,
                             model_cfg: ModelConfig):
-    """Launch ``admm_fused_kernel`` on the current stream; same outputs as
-    :func:`solve_mpc_qp_fused_plain`.  Raises on anything the kernel does
-    not take, and on a failed launch."""
+    """Launch ``admm_fused_kernel`` (its cyclic-reduction instantiation
+    under ``cfg.stage_solver == "cr"``) on the current stream; same outputs
+    as :func:`solve_mpc_qp_fused_plain`.  Raises on anything the kernel
+    does not take, and on a failed launch."""
     dev = v_ref.device
     if dev.type != "cuda":
         raise ValueError(f"solve_mpc_qp_fused_cuda needs CUDA tensors, got {dev}")
     Bsz, N = v_ref.shape
-    _check_horizon(N)
+    cr = cfg.stage_solver == "cr"  # any other value: Schur, as on the TPU
+    _check_horizon(N, cr)
     W0, Zw0, Yeq0, Yw0 = (t.contiguous() for t in pack_carry(warm))
     ins = [("v_ref", v_ref, (Bsz, N)), ("kappa_ref", kappa_ref, (Bsz, N)),
            ("delta_s", delta_s, (Bsz, N)), ("lb_c", lb_c, (Bsz, N)),
@@ -249,14 +269,18 @@ def solve_mpc_qp_fused_cuda(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0,
             empty(Bsz), empty(Bsz), empty(Bsz))
     fn = _library()
     rc = fn(*(t.data_ptr() for _, t, _ in ins), *(t.data_ptr() for t in outs),
-            Bsz, N, _params(cfg, mpc_cfg, model_cfg),
+            Bsz, N, int(cr), _params(cfg, mpc_cfg, model_cfg),
             torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(rc, "admm_fused_kernel")
-    solve_mpc_qp_fused_cuda.launches += 1
+    if cr:
+        solve_mpc_qp_fused_cuda.launches_cr += 1
+    else:
+        solve_mpc_qp_fused_cuda.launches += 1
     return outs
 
 
 solve_mpc_qp_fused_cuda.launches = 0
+solve_mpc_qp_fused_cuda.launches_cr = 0
 
 
 # ---------------------------------------------------------------------------
@@ -275,15 +299,16 @@ def solve_ltv_qp_structured_plain(sq: StageQP, warm: SolverCarry,
 
 def _structured_library():
     fn = kernels.load("admm_structured").admm_structured_launch
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int, ctypes.c_int,
-                                           _SolverParams, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [
+        _SolverParams, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def solve_ltv_qp_structured_cuda(sq: StageQP, warm: SolverCarry,
                                  cfg: SolverConfig):
-    """Launch ``admm_structured_kernel`` on the current stream; same outputs
+    """Launch ``admm_structured_kernel`` (its cyclic-reduction instantiation
+    under ``cfg.stage_solver == "cr"``) on the current stream; same outputs
     as :func:`solve_ltv_qp_structured_plain`.  Raises on anything the kernel
     does not take, and on a failed launch."""
     dev = sq.AB.device
@@ -291,7 +316,8 @@ def solve_ltv_qp_structured_cuda(sq: StageQP, warm: SolverCarry,
         raise ValueError(f"solve_ltv_qp_structured_cuda needs CUDA tensors, "
                          f"got {dev}")
     Bsz, N = sq.AB.shape[:2]
-    _check_horizon(N)
+    cr = cfg.stage_solver == "cr"  # any other value: Schur, as on the TPU
+    _check_horizon(N, cr)
     W0, Zw0, Yeq0, Yw0 = (t.contiguous() for t in pack_carry(warm))
     S5, S3 = (Bsz, N + 1, NW), (Bsz, N + 1, NX)
     ins = [("AB", sq.AB, (Bsz, N, NX, NW)), ("beq", sq.beq, S3),
@@ -305,13 +331,18 @@ def solve_ltv_qp_structured_cuda(sq: StageQP, warm: SolverCarry,
             empty(Bsz), empty(Bsz))
     rc = _structured_library()(
         *(t.data_ptr() for _, t, _ in ins), *(t.data_ptr() for t in outs),
-        Bsz, N, _solver_params(cfg), torch.cuda.current_stream(dev).cuda_stream)
+        Bsz, N, int(cr), _solver_params(cfg),
+        torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(rc, "admm_structured_kernel")
-    solve_ltv_qp_structured_cuda.launches += 1
+    if cr:
+        solve_ltv_qp_structured_cuda.launches_cr += 1
+    else:
+        solve_ltv_qp_structured_cuda.launches += 1
     return outs
 
 
 solve_ltv_qp_structured_cuda.launches = 0
+solve_ltv_qp_structured_cuda.launches_cr = 0
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ Variables are grouped per stage w_n = (x_n, u_n) in R^5; the u-slot of
 stage N is a pad variable with zero cost and (-inf, inf) bounds.  The ADMM
 reduced KKT matrix is then block tridiagonal with 5x5 blocks, factorized by
 a Schur-complement recursion over the N+1 stages; every iteration runs one
-forward and one backward substitution.
+forward and one backward substitution.  ``SolverConfig(stage_solver="cr")``
+factors and solves the same system by block cyclic reduction instead
+(:mod:`.cyclic_reduction`) in :func:`admm_rounds`, the core of kernels K1
+and K3.
 
 The solver core works on the stage layout of the fused TPU kernel
 (``StageQP``: ``[A_n | B_n]``, beq, Pd, qv, lw, uw per stage) and follows
@@ -277,14 +280,14 @@ def _solve(Sinv, C, b):
 # ADMM on the structured problem
 # ---------------------------------------------------------------------------
 
-def admm_iteration(sq: StageQP, Sinv, C, rho_eq, rho_w, sigma, alpha, state):
-    """One ADMM iteration on the factored stage system; ``state`` is the
-    stage-layout iterate ``(W, Zw, Yeq, Yw)``."""
+def admm_iteration(sq: StageQP, solve, rho_eq, rho_w, sigma, alpha, state):
+    """One ADMM iteration; ``solve(b)`` solves the factored stage system and
+    ``state`` is the stage-layout iterate ``(W, Zw, Yeq, Yw)``."""
     W, Zw, Yeq, Yw = state
     re = rho_eq[:, None, None]
     weq = re * sq.beq - Yeq
     rhs = sigma * W - sq.qv + eq_applyT(sq, weq) + rho_w * Zw - Yw
-    Wt = _solve(Sinv, C, rhs)
+    Wt = solve(rhs)
     Req = eq_apply(sq, Wt)
     Wn = alpha * Wt + (1.0 - alpha) * W
     # eq rows: the projection pins z to beq; the dual accumulates violation
@@ -319,7 +322,13 @@ def admm_rounds(sq: StageQP, cfg: SolverConfig, state, rho0):
     """The fixed-budget solve from the stage iterate ``state`` with per-lane
     initial step size ``rho0`` (B,): ``cfg.rho_updates`` rounds of
     ``cfg.iterations`` iterations with adaptive rho, then the guarded
-    active-set polish.  Returns ``(state, rho)``."""
+    active-set polish.  The stage systems are solved by block cyclic
+    reduction under ``cfg.stage_solver == "cr"``, else by the Schur
+    recursion.  Returns ``(state, rho)``."""
+    # imported here: cyclic_reduction builds on this module's block products
+    from multi_purpose_mpc_tpu_torch.ops.cyclic_reduction import (cr_factor,
+                                                                  cr_solve)
+
     sigma, alpha, eq_scale = cfg.sigma, cfg.alpha, cfg.rho_eq_scale
     W, Zw, Yeq, Yw = state
     state = (W, torch.clamp(Zw, sq.lw, sq.uw), Yeq, Yw)
@@ -332,9 +341,14 @@ def admm_rounds(sq: StageQP, cfg: SolverConfig, state, rho0):
         if boost is not None:
             rho_w = rho_w * boost
         D, C = _build_blocks(sq, rho_eq, rho_w, sigma)
-        Sinv = _factor(D, C)
+        if cfg.stage_solver == "cr":
+            fac = cr_factor(D, C)
+            solve = lambda b: cr_solve(fac, b)
+        else:
+            Sinv = _factor(D, C)
+            solve = lambda b: _solve(Sinv, C, b)
         for _ in range(iters):
-            state = admm_iteration(sq, Sinv, C, rho_eq, rho_w, sigma, alpha,
+            state = admm_iteration(sq, solve, rho_eq, rho_w, sigma, alpha,
                                    state)
         return state
 
@@ -376,7 +390,10 @@ def solve_ltv_qp(qp: LTVQP, cfg: SolverConfig,
                  warm: Optional[SolverCarry] = None) -> LTVSolution:
     """Batched ADMM solve of the LTV-MPC QPs (the JAX package's vmapped
     ``solve_ltv_qp``).  ``warm``: the previous step's carry; its adapted rho
-    is resumed only under ``cfg.carry_rho``."""
+    is resumed only under ``cfg.carry_rho``.  Like the JAX package's XLA
+    solver it takes the Schur recursion whatever ``cfg.stage_solver`` says
+    (the field selects the kernels' stage solver)."""
+    cfg = dataclasses.replace(cfg, stage_solver="schur")
     Bsz, N = qp.A.shape[0], qp.N
     dt, dev = qp.A.dtype, qp.A.device
     if warm is None:

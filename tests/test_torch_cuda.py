@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from multi_purpose_mpc_tpu_torch.config import (LidarConfig, SimConfig,
+                                                SolverConfig,
                                                 sim_track_preset)
 from multi_purpose_mpc_tpu_torch.mpc import (WeightSet, kappa_predictions,
                                              mpc_locate, mpc_pre_solve)
@@ -465,3 +466,63 @@ def test_k1_k3_refuse_horizons_past_n_max(cuda_device):
     out = admm_cuda.solve_mpc_qp_fused_cuda(*args)
     torch.cuda.synchronize()
     assert out[0].shape == (2, admm_cuda.N_MAX + 1, 5)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 with block cyclic reduction as the stage solver
+# (SolverConfig(stage_solver="cr")): bitwise equal to the CR plain versions
+# ---------------------------------------------------------------------------
+
+def _cr(args):
+    """K1 or K3 inputs with the CR stage solver in their SolverConfig."""
+    return [dataclasses.replace(a, stage_solver="cr")
+            if isinstance(a, SolverConfig) else a for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256])
+@pytest.mark.parametrize("N", [1, 8, 30, 31, 60])
+def test_k1_k3_cr_bitwise_equal_plain(cuda_device, N, B):
+    """N = 30 fills the 31 padded stages exactly, N = 8 pads 9 to 15,
+    N = 31 pads 32 to 63 and N = 60 pads 61 to 63 (32 even stages on the
+    first level).  Lane 0 carries a NaN from B = 33 on: it stays in its lane."""
+    args = _cr(_k1_random(N, B, 10 * N + B, cuda_device))
+    sq, warm, solver = _cr(_k3_random(N, B, 10 * N + B, cuda_device))
+    if B > 1:
+        args[0] = args[0].clone()
+        args[0][0, N // 2] = float("nan")
+        sq.qv[0, N // 2, 0] = float("nan")
+    n1 = admm_cuda.solve_mpc_qp_fused_cuda.launches_cr
+    n3 = admm_cuda.solve_ltv_qp_structured_cuda.launches_cr
+    ker = admm_cuda.solve_mpc_qp_fused_cuda(*args)
+    ref = admm_cuda.solve_mpc_qp_fused_plain(*args)
+    ker3 = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+    ref3 = admm_cuda.solve_ltv_qp_structured_plain(sq, warm, solver)
+    torch.cuda.synchronize()
+    assert admm_cuda.solve_mpc_qp_fused_cuda.launches_cr == n1 + 1
+    assert admm_cuda.solve_ltv_qp_structured_cuda.launches_cr == n3 + 1
+    names = ("W", "Zw", "Yeq", "Yw", "rho", "r_prim", "r_dual", "floor")
+    for name, a, b in zip(names, ker, ref):
+        assert _same_bits(a, b), f"K1-CR {name}"
+    for name, a, b in zip(names, ker3, ref3):
+        assert _same_bits(a, b), f"K3-CR {name}"
+    clean = slice(1, None) if B > 1 else slice(None)
+    assert torch.isfinite(ker[0][clean]).all()
+    assert torch.isfinite(ker3[0][clean]).all()
+    if B > 1:
+        assert not torch.isfinite(ker[0][0]).all()
+        assert not torch.isfinite(ker3[0][0]).all()
+
+
+@pytest.mark.cuda
+def test_k1_k3_cr_refuse_horizons_past_n_max_cr(cuda_device):
+    N = admm_cuda.N_MAX_CR + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_cuda.solve_mpc_qp_fused_cuda(*_cr(_k1_random(N, 2, 0, cuda_device)))
+    sq, warm, solver = _cr(_k3_random(N, 2, 0, cuda_device))
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+    out = admm_cuda.solve_mpc_qp_fused_cuda(
+        *_cr(_k1_random(admm_cuda.N_MAX_CR, 2, 0, cuda_device)))
+    torch.cuda.synchronize()
+    assert out[0].shape == (2, admm_cuda.N_MAX_CR + 1, 5)

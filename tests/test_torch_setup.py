@@ -98,6 +98,7 @@ def test_port_never_imports_jax():
             "multi_purpose_mpc_tpu_torch.simulation, "
             "multi_purpose_mpc_tpu_torch.ops.corridor_extract, "
             "multi_purpose_mpc_tpu_torch.ops.admm_cuda, "
+            "multi_purpose_mpc_tpu_torch.ops.cyclic_reduction, "
             "multi_purpose_mpc_tpu_torch.ops.lidar, "
             "multi_purpose_mpc_tpu_torch.ops.mapping, "
             "multi_purpose_mpc_tpu_torch.interop; "
@@ -111,8 +112,7 @@ def test_port_never_imports_jax():
 
 
 # fields the port leaves out on purpose (TPU-only code paths; see its config)
-_LEFT_OUT = {"SolverConfig": {"kernel_lanes", "rolled_stage_loops",
-                              "stage_solver"},
+_LEFT_OUT = {"SolverConfig": {"kernel_lanes", "rolled_stage_loops"},
              "MPCConfig": {"solver_backend", "extract_backend"}}
 
 

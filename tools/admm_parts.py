@@ -1,13 +1,16 @@
 """Where kernel K1's time goes: K1 timed with one part of its solve switched
 off, on the card.
 
-    python tools/admm_parts.py [N]
+    python tools/admm_parts.py [N] [--cr]
 
 Builds four variants of ``csrc/admm_fused.cu`` into a temporary directory:
 the kernel as it is, and the kernel with the stage substitutions
 (``substitute``), the Schur factorisation (``factor``) or the
 stage-parallel work of an iteration (right-hand side, projection, dual
-updates) returning at once.  Each variant is timed in its own process (a
+updates) returning at once.  With ``--cr`` the kernel runs its
+cyclic-reduction stage solver (``SolverConfig(stage_solver="cr")``) and
+the variants switch off its solve (``cr_solve``) and its factorisation
+(``cr_factor``) instead.  Each variant is timed in its own process (a
 library is loaded once per process) with CUDA events at B = 1, 1024 and
 4096 on the same synthetic inputs, at the production solver budget.  A
 switched-off variant computes nothing meaningful; only its time is read:
@@ -26,35 +29,44 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CORE = REPO / "multi_purpose_mpc_tpu_torch" / "csrc"
 BATCHES = (1, 1024, 4096)
 
-# variant -> (function signature line, line inserted after it)
+# variant -> (function signature line, line inserted after it), per stage
+# solver
+STAGE_PARALLEL_OFF = ("float rho_eq) {\n  // right-hand side", None)
 OFF = {
     "substitute off": ("void substitute(const Lane& L) {",
                        "  if (L.N > 0) return;"),
     "factor off": ("void factor(const Lane& L) {", "  if (L.N > 0) return;"),
-    "stage-parallel work off": ("float rho_eq) {\n  // right-hand side",
-                                None),
+    "stage-parallel work off": STAGE_PARALLEL_OFF,
+}
+OFF_CR = {
+    "cr_solve off": ("void cr_solve(const Lane& L) {",
+                     "  if (L.N > 0) return;"),
+    "cr_factor off": ("void cr_factor(const Lane& L) {",
+                      "  if (L.N > 0) return;"),
+    "stage-parallel work off": STAGE_PARALLEL_OFF,
 }
 
 
-def make_variant(root: pathlib.Path, name: str) -> pathlib.Path:
+def make_variant(root: pathlib.Path, name: str, off: dict) -> pathlib.Path:
     src = root / name.replace(" ", "_") / "csrc"
     shutil.copytree(CORE, src)
-    if name in OFF:
+    if name in off:
         path = src / "admm_core.cuh"
         text = path.read_text()
-        anchor, line = OFF[name]
+        anchor, line = off[name]
         assert text.count(anchor) == 1, anchor
-        if line is None:  # iteration() keeps only the substitution
+        if line is None:  # iteration() keeps only the stage solve
             head, tail = text.split(anchor)
             body_end = tail.index("\n}\n")
-            text = head + "float rho_eq) {\n  substitute(L);" + tail[body_end:]
+            text = (head + "float rho_eq) {\n  if constexpr (CR) cr_solve(L);"
+                    " else substitute(L);" + tail[body_end:])
         else:
             text = text.replace(anchor, anchor + "\n" + line)
         path.write_text(text)
     return src
 
 
-def time_variant(src: str, N: int) -> str:
+def time_variant(src: str, N: int, stage_solver: str) -> str:
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -68,7 +80,10 @@ def time_variant(src: str, N: int) -> str:
 
     import numpy as np
 
+    import dataclasses
+
     _, _, model, cfg, _, _ = sim_track_preset(str(REPO / "assets" / "maps"))
+    solver = dataclasses.replace(cfg.solver, stage_solver=stage_solver)
     dev = torch.device("cuda:0")
     out = []
     for B in BATCHES:
@@ -79,8 +94,8 @@ def time_variant(src: str, N: int) -> str:
         x0 = torch.stack([u(-0.06, 0.06), u(-0.2, 0.2), t(np.zeros(B))], -1)
         args = (u(0.4, 1.2, N), u(-4.0, 4.0, N), u(0.03, 0.06, N), ctr - half,
                 ctr + half, x0, u(-4.0, 4.0, N),
-                init_solver_carry(N, B, cfg.solver.rho, dev), cfg.solver,
-                cfg, model)
+                init_solver_carry(N, B, cfg.solver.rho, dev), solver, cfg,
+                model)
         fn = lambda: admm_cuda.solve_mpc_qp_fused_cuda(*args)
         fn()
         torch.cuda.synchronize()
@@ -96,24 +111,28 @@ def time_variant(src: str, N: int) -> str:
 
 
 def main():
-    N = int(sys.argv[1]) if len(sys.argv) > 1 else 30
+    cr = "--cr" in sys.argv
+    args = [a for a in sys.argv[1:] if a != "--cr"]
+    N = int(args[0]) if args else 30
+    off, solver, label = (OFF_CR, "cr", "K1-CR") if cr else (OFF, "auto",
+                                                               "K1")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory() as d:
-        for name in ("full kernel",) + tuple(OFF):
-            src = make_variant(pathlib.Path(d), name)
+        for name in ("full kernel",) + tuple(off):
+            src = make_variant(pathlib.Path(d), name, off)
             res = subprocess.run(
-                [sys.executable, __file__, "--time", str(src), str(N)],
+                [sys.executable, __file__, "--time", str(src), str(N), solver],
                 capture_output=True, text=True, env=dict(os.environ))
             if res.returncode != 0:
                 raise RuntimeError(f"{name}: {res.stderr[-2000:]}")
-            print(f"[K1 parts] N={N}, {name}: {res.stdout.strip()} ({card})",
-                  flush=True)
+            print(f"[{label} parts] N={N}, {name}: {res.stdout.strip()} "
+                  f"({card})", flush=True)
 
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--time":
-        print(time_variant(sys.argv[2], int(sys.argv[3])))
+        print(time_variant(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     else:
         main()
