@@ -1,4 +1,4 @@
-"""Kernel K2: corridor continuity selection, one lane per thread.
+"""Kernel K2: corridor continuity selection, one thread per candidate segment.
 
 Replaces the Pallas TPU kernel ``multi_purpose_mpc_tpu/ops/corridor_pallas.py``
 (``_make_kernel`` via ``select_call_lanes_last``).  For each lane it scans
@@ -12,14 +12,20 @@ and collapses infeasible stages to 0.
   kernel's formulas (cross-product sign instead of atan2 + wrap, sqrt
   instead of hypot, strict ``<`` so ties keep the first segment);
 * :func:`corridor_select_cuda` — ``csrc/corridor_select.cu`` (built
-  without FMA contraction: it agrees with the twin bit for bit);
+  without FMA contraction: it agrees with the twin bit for bit, NaN equal
+  to NaN);
 * :func:`corridor_select` — CPU tensors to the twin, CUDA tensors to the
   kernel; no fallback.
 
-What bounds the kernel on the card: ~40 flops per (stage, segment) and a
-6 KB row per lane read by its own thread, uncoalesced across the warp — it
-is memory-latency bound; staging the block through shared memory with
-coalesced loads is the obvious next step.
+What bounds the kernel on the card: the bytes, B N F 4 read and B N 6 4
+written (8.2 us at B = 4096, N = 30, S = 8 and 3.35 TB/s), and the latency
+of a lane's sequential stage chain.  The kernel gives every candidate
+segment of a lane a thread (16 lanes a 128-thread block at S = 8), stages
+the block's lanes through shared memory in chunks of 8 stages, a ring of 4
+filled 3 chunks ahead (cp.async, 16-byte pieces, coalesced, independent of
+N), keeps the chain free of branches (a branch-free correctly rounded
+square root, :func:`sqrt_mismatches`), picks the first strict minimum with
+a warp-shuffle reduction and stores each chunk's outputs coalesced.
 """
 
 from __future__ import annotations
@@ -131,6 +137,20 @@ def corridor_select_cuda(blk: torch.Tensor, S: int,
 
 
 corridor_select_cuda.launches = 0
+
+
+def sqrt_mismatches(device="cuda") -> int:
+    """Float inputs (of all 2^32) on which the kernel's branch-free square
+    root differs from ``sqrtf``, NaN equal to NaN; 0 is what keeps K2 bit
+    for bit equal to the plain version."""
+    fn = kernels.load("corridor_select").corridor_select_sqrt_mismatches
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    kernels.check_launch(fn(count.data_ptr(),
+                            torch.cuda.current_stream(count.device).cuda_stream),
+                         "sqrt_check_kernel")
+    return int(count.item())
 
 
 def corridor_select(blk: torch.Tensor, S: int, safety_margin: float) -> Corridor:

@@ -119,6 +119,51 @@ def test_k2_twin_collapses_blocked_stages(sc):
     assert (out.ub[:, :4] > out.lb[:, :4]).all()
 
 
+def _tpu_kernel_on_block(blk: np.ndarray, S: int, sm: float):
+    """The JAX package's TPU kernel in interpret mode on a (B, N, F) block,
+    after corridor_select_pallas_segs' lanes-last transposes."""
+    from multi_purpose_mpc_tpu.ops.corridor_pallas import select_call_lanes_last
+
+    lanes = 8
+    B, N, _ = blk.shape
+    pad = (-B) % lanes
+    blk = np.concatenate([blk, np.repeat(blk[:1], pad, 0)])
+    t2 = lambda c: jnp.asarray(blk[:, :, c].T)  # (Bp, N) -> (N, Bp)
+    pts = lambda c0: jnp.asarray(
+        blk[:, :, c0:c0 + 2 * S].reshape(B + pad, N, S, 2).transpose(1, 2, 3, 0))
+    va0 = 7 + 4 * S
+    valid = jnp.asarray(blk[:, :, va0:va0 + S].transpose(1, 2, 0))
+    return select_call_lanes_last(
+        pts(7), pts(7 + 2 * S), valid, *(t2(c) for c in range(7)), N=N, S=S,
+        safety_margin=sm, out_batch=B, lanes=lanes, interpret=True)
+
+
+@pytest.mark.parametrize("S", [1, 8, 13])
+def test_k2_twin_edge_cases_match_tpu_kernel(S):
+    """Exact score ties, zero-width segments (-0 and +0), empty stages, a
+    lane blocked everywhere, a NaN lane and NaN points
+    (tests/corridor_blocks.py) through the twin and the JAX TPU kernel in
+    interpret mode: the first strict minimum, NaN never chosen, (x, y)
+    kept where nothing is valid — the semantics kernel K2's reduction must
+    keep.  Bars of this module's docstring, NaN equal to NaN."""
+    from tests.corridor_blocks import SM_EXACT, edge_blocks
+
+    blk = edge_blocks(12, 5, S, seed=S)
+    out = corridor_select_plain(torch.from_numpy(blk), S, SM_EXACT)
+    ref = _tpu_kernel_on_block(blk, S, SM_EXACT)
+    for f, tol in (("ub", 2e-5), ("lb", 2e-5), ("border_ub", 5e-5),
+                   ("border_lb", 5e-5)):
+        np.testing.assert_allclose(getattr(out, f).numpy(),
+                                   np.asarray(getattr(ref, f)), atol=tol,
+                                   rtol=0, equal_nan=True, err_msg=f)
+    # the tie lanes (kind 0) are exact: every stage bit for bit
+    for f in ("ub", "lb"):
+        np.testing.assert_array_equal(getattr(out, f).numpy()[0::6],
+                                      np.asarray(getattr(ref, f))[0::6])
+    assert np.isnan(out.ub.numpy()[4::6]).all()  # the NaN lanes
+    assert (out.ub.numpy()[3::6] == 0).all()  # blocked everywhere: collapsed
+
+
 def test_k2_dispatch_by_device(sc):
     """CPU tensors take the twin; the CUDA wrapper refuses CPU tensors."""
     from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select_cuda

@@ -526,3 +526,69 @@ def test_k1_k3_cr_refuse_horizons_past_n_max_cr(cuda_device):
         *_cr(_k1_random(admm_cuda.N_MAX_CR, 2, 0, cuda_device)))
     torch.cuda.synchronize()
     assert out[0].shape == (2, admm_cuda.N_MAX_CR + 1, 5)
+
+
+# ---------------------------------------------------------------------------
+# K2: bitwise equal to the plain version at any horizon, batch and segment
+# count, on synthetic blocks with exact ties, zero-width segments, empty
+# stages, blocked and NaN lanes (tests/corridor_blocks.py, imported from
+# the test directory pytest puts on sys.path: the GPU image may carry a
+# ``tests`` package of its own).
+# ---------------------------------------------------------------------------
+
+def _k2_check(blk_np, S, dev):
+    from corridor_blocks import SM_EXACT
+
+    blk = torch.from_numpy(blk_np).to(dev)
+    n0 = corridor_cuda.corridor_select_cuda.launches
+    ker = corridor_cuda.corridor_select_cuda(blk, S, SM_EXACT)
+    ref = corridor_cuda.corridor_select_plain(blk, S, SM_EXACT)
+    torch.cuda.synchronize()
+    assert corridor_cuda.corridor_select_cuda.launches == n0 + 1
+    for name, a, b in zip(ker._fields, ker, ref):
+        assert a.shape == b.shape and a.is_contiguous(), name
+        assert _same_bits(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 256])
+@pytest.mark.parametrize("N", [1, 30, 60, 513])
+def test_k2_bitwise_equal_plain_at_any_horizon(cuda_device, N, B):
+    from corridor_blocks import edge_blocks, random_blocks
+
+    _k2_check(random_blocks(B, N, 8, seed=N + B), 8, cuda_device)
+    _k2_check(edge_blocks(B, N, 8, seed=N + B), 8, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 8, 13, 40])
+def test_k2_bitwise_equal_plain_at_any_segment_count(cuda_device, S):
+    """S = 1 (one thread a lane), 13 (16 threads, 3 idle), 40 (32 threads,
+    each walking two candidates in index order)."""
+    from corridor_blocks import edge_blocks, random_blocks
+
+    for B, N in ((33, 30), (256, 17)):
+        _k2_check(random_blocks(B, N, S, seed=S + B), S, cuda_device)
+        _k2_check(edge_blocks(B, N, S, seed=S + N), S, cuda_device)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_malformed_blocks(cuda_device):
+    from corridor_blocks import random_blocks
+
+    blk = torch.from_numpy(random_blocks(4, 30, 8)).to(cuda_device)
+    for bad in (blk.double(), blk[:, :, :-1], blk.transpose(0, 1),
+                blk[:, :, :-1].contiguous(), blk[0]):
+        with pytest.raises(ValueError):
+            corridor_cuda.corridor_select_cuda(bad, 8, 0.5)
+    with pytest.raises(ValueError):  # the width of S = 8 read as S = 7
+        corridor_cuda.corridor_select_cuda(blk, 7, 0.5)
+    empty = corridor_cuda.corridor_select_cuda(blk[:0], 8, 0.5)
+    assert empty.ub.shape == (0, 30)
+
+
+@pytest.mark.cuda
+def test_k2_square_root_is_sqrtf_on_every_float(cuda_device):
+    """K2's branch-free square root equals sqrtf on all 2^32 inputs (NaN
+    equal to NaN): the kernel's bitwise agreement rests on it."""
+    assert corridor_cuda.sqrt_mismatches(cuda_device) == 0

@@ -101,7 +101,8 @@ def test_port_never_imports_jax():
             "multi_purpose_mpc_tpu_torch.ops.cyclic_reduction, "
             "multi_purpose_mpc_tpu_torch.ops.lidar, "
             "multi_purpose_mpc_tpu_torch.ops.mapping, "
-            "multi_purpose_mpc_tpu_torch.interop; "
+            "multi_purpose_mpc_tpu_torch.interop, chip_smoke, "
+            "tools.oracle_lap, tools.k2_compare, tools.k2_parts; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_purpose_mpc_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
