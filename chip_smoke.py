@@ -4,8 +4,9 @@
 
 Drives the port's paths — the Sim_Track obstacle-avoidance fleet on a
 static and on a dynamic grid, per-lane weight sweeps, the escalation pass,
-Real_Track and LiDAR in the loop; N = 30, S = 8, K = 128, the production
-solver budget — through their public entry points, in phases:
+Real_Track, LiDAR in the loop and the reference-mirroring object API;
+N = 30, S = 8, K = 128, the production solver budget — through their
+public entry points, in phases:
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
 2. build: compiles the six CUDA kernels from
@@ -88,7 +89,23 @@ solver budget — through their public entry points, in phases:
     fleet through one ``simulate_fleet`` step (K2 = K1 = 1 launch), held
     to tests/test_torch_oracle.py's bars (tests/test_parity.py:120-150);
     the speed command at ``oracle_lap.PINCH_STEP`` is printed, not held
-    (the CPU test's strict xfail).
+    (the CPU test's strict xfail);
+21. the reference's two-call loop through the object API (``api.Map``,
+    ``ReferencePath`` + ``compute_speed_profile``, ``BicycleModel``,
+    ``MPC``, ``LidarModel``, built as tests/test_api.py's world fixture
+    builds them, on the preset's 9 obstacles): (a) the two-call loop
+    ``u = mpc.get_control(); car.drive(u)`` on the static map until the
+    lap is done, at most 300 steps; (b) the same loop with
+    ``LidarModel.scan`` + ``update_map`` every step, from the true map, 60
+    steps.  Each loop: per step K4 = K2 = K3 = 1 launch and no other
+    kernel; the corridor of the first 5 steps bitwise equal to
+    ``update_path_constraints`` through the plain versions on the card;
+    accept >= 0.9, max |e_y| < 0.25 m, the infeasibility counter below
+    N - 1 and (a) the lap done; (b) leaves the map as it was and repeats
+    (a)'s controls bit for bit; the median and p99 wall ms per step of
+    ``get_control``, ``drive`` and (b) ``scan`` + ``update_map``, and a
+    torch.profiler split of ``get_control`` into kernel and other device
+    time.
 
 Prints a JSON line with each kernel's launches, error, times and bound
 (``bound_ms`` from the bytes each kernel must move and the float32
@@ -452,6 +469,187 @@ def fmt_health(h):
             f"{h['infeas']:.4f}, solver-failure {h['solver_fail']:.5f}, "
             f"failed lanes {h['failed']}, mean progress {h['progress']:.3f} m "
             f"(floor {h['exp_progress']:.3f}), max|e_y| {h['max_ey']:.4f}")
+
+
+API_LAP_STEPS = 300
+API_LIDAR_STEPS = 60
+API_CHECKED_STEPS = 5  # steps whose corridor is held against the plain path
+API_PROFILE_STEPS = 20
+API_MAX_EY = 0.25
+API_ACCEPT = 0.9
+
+
+def plain_corridor(grid, path, wp_id, N, min_width, sm, n_samples, S):
+    """``constraints.update_path_constraints`` with the plain versions of
+    K4 (``extract_occ_gather``) and K2 (``corridor_select_plain``) on the
+    same (card) tensors and the same cached tables."""
+    from multi_purpose_mpc_tpu_torch.ops import constraints as cons
+    from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select_plain
+    from multi_purpose_mpc_tpu_torch.ops.corridor_extract import (
+        extract_occ_gather, horizon_segments, horizon_tables)
+    from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
+        horizon_block_from_segments)
+    from multi_purpose_mpc_tpu_torch.ops.path import gather_waypoint_index
+
+    scan, table = cons.corridor_tables(grid, path, N, n_samples, S)
+    wp = wp_id.reshape(-1).long()
+    idx = gather_waypoint_index(path, wp[:, None],
+                                torch.arange(N, device=wp.device)[None, :])
+    h = horizon_tables(scan, idx)
+    segs = horizon_segments(extract_occ_gather(grid.occ, h.px, h.py), h,
+                            min_width, S)
+    blk = horizon_block_from_segments(table, gather_waypoint_index(path, wp, 0),
+                                      segs)
+    return corridor_select_plain(blk, S, sm)
+
+
+def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
+              reset_counts, read_counts, expect):
+    """Phase 21 (module docstring): the two-call loop through the object
+    API, on the static map and with the LiDAR writing into it."""
+    from multi_purpose_mpc_tpu_torch import api
+
+    def world():
+        m = api.Map(map_cfg.file_path, map_cfg.origin, map_cfg.resolution,
+                    device="cuda")
+        rp = api.ReferencePath(m, path_cfg.wp_x, path_cfg.wp_y,
+                               path_cfg.resolution, path_cfg.smoothing_distance,
+                               path_cfg.max_width, path_cfg.circular)
+        m.add_obstacles([api.Obstacle(*o) for o in obstacles])
+        car = api.BicycleModel(rp, model.length, model.width, model.Ts)
+        kmax = np.tan(cfg.delta_max) / car.length
+        ctrl = api.MPC(car, cfg.N, np.diag(cfg.Q), np.diag(cfg.R),
+                       np.diag(cfg.QN),
+                       {"xmin": np.full(3, -np.inf), "xmax": np.full(3, np.inf)},
+                       {"umin": np.array([cfg.v_min, -kmax]),
+                        "umax": np.array([cfg.v_max, kmax])}, cfg.ay_max)
+        rp.compute_speed_profile(speed_cfg)
+        return m, rp, car, ctrl
+
+    # the step's ControlOutput, for its corridor: a spy around the API's
+    # mpc_step that changes nothing
+    seen = []
+    step_fn = api.mpc_step
+
+    def spy(*args, **kw):
+        out = step_fn(*args, **kw)
+        seen.append(out)
+        return out
+
+    api.mpc_step = spy
+    sm = model.safety_margin
+    pct = lambda a, q: float(np.percentile(np.asarray(a) * 1e3, q))
+    controls = {}
+    try:
+        for label, steps, lidar in (("static map", API_LAP_STEPS, None),
+                                    ("LiDAR scan + update_map", API_LIDAR_STEPS,
+                                     api.LidarModel(FoV=180, range=2.0,
+                                                    resolution=2))):
+            m, rp, car, ctrl = world()
+            data0 = m.data.copy()
+            N = ctrl.N
+            controls[label] = []
+            times = {"get_control": [], "drive": [], "scan + update_map": []}
+            accept, eys, max_count, bad = [], [], 0, []
+            t_loop = time.perf_counter()
+            for k in range(steps):
+                if lidar is not None:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lidar.scan(car, m)
+                    lidar.update_map(car, m)
+                    torch.cuda.synchronize()
+                    times["scan + update_map"].append(time.perf_counter() - t0)
+                reset_counts()
+                t0 = time.perf_counter()
+                u = ctrl.get_control()
+                times["get_control"].append(time.perf_counter() - t0)
+                counts = read_counts()
+                if counts != expect(extract_occ=1, corridor_select=1,
+                                    admm_structured=1):
+                    bad.append((k, counts))
+                out = seen.pop()
+                if k < API_CHECKED_STEPS:
+                    ref = plain_corridor(m.grid, rp.path_data,
+                                         out.state.wp_id + 1, N, 2.0 * sm, sm,
+                                         cfg.n_scan_samples, cfg.max_segments)
+                    if not all(same_bits(a, b) for a, b in zip(out.corridor, ref)):
+                        raise AssertionError(f"API {label}: step {k}'s corridor "
+                                             "differs from the plain versions'")
+                accept.append(ctrl.infeasibility_counter == 0)
+                max_count = max(max_count, ctrl.infeasibility_counter)
+                eys.append(float(out.state.e_y[0]))
+                controls[label].append(u)
+                t0 = time.perf_counter()
+                car.drive(u)
+                torch.cuda.synchronize()
+                times["drive"].append(time.perf_counter() - t0)
+                if car.s >= rp.length:
+                    break
+            wall = time.perf_counter() - t_loop
+            n = len(accept)
+            acc = float(np.mean(accept))
+            max_ey = float(np.max(np.abs(eys)))
+            done = car.s >= rp.length
+            print(f"[api] {label}: {n} steps ({wall:.2f} s wall), lap done "
+                  f"{done}, accept {acc:.4f}, max|e_y| {max_ey:.4f}, max "
+                  f"infeasibility counter {max_count}, launches per step "
+                  f"K4 = K2 = K3 = 1 on {n - len(bad)} of {n}; corridor of "
+                  f"steps 0-{API_CHECKED_STEPS - 1} bitwise equal to the plain "
+                  f"versions; wall ms per step median / p99: " + ", ".join(
+                      f"{name} {pct(t, 50):.3f} / {pct(t, 99):.3f}"
+                      for name, t in times.items() if t) + f" ({card})",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"API {label}: launch counts {bad[:3]}")
+            if lidar is not None:
+                # the scans of the true map write nothing new into it, so
+                # the loop repeats the static one's first steps
+                same = np.array_equal(np.stack(controls[label]), np.stack(
+                    controls["static map"][:n]))
+                print(f"[api] {label}: map unchanged "
+                      f"{np.array_equal(m.data, data0)}, controls bitwise "
+                      f"equal to the static map's first {n} steps: {same}",
+                      flush=True)
+                if not same or not np.array_equal(m.data, data0):
+                    raise AssertionError(f"API {label} departs from the "
+                                         "static map's loop")
+            if acc < API_ACCEPT or max_ey >= API_MAX_EY or max_count >= N - 1 \
+                    or (lidar is None and not done):
+                raise AssertionError(f"API {label} misses its bars")
+
+        # where get_control's time goes: torch.profiler over a fresh loop
+        from torch.profiler import ProfilerActivity, profile
+
+        m, rp, car, ctrl = world()
+        for _ in range(3):  # warm-up
+            car.drive(ctrl.get_control())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(API_PROFILE_STEPS):
+                u = ctrl.get_control()
+                car.drive(u)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / API_PROFILE_STEPS
+        dev_us = lambda e: getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+        events = [e for e in prof.key_averages() if dev_us(e) > 0]
+        per = lambda es: sum(dev_us(e) for e in es) / 1e3 / API_PROFILE_STEPS
+        ours = ("extract_occ", "corridor_select", "admm_structured")
+        kern = [e for e in events if any(k in e.key for k in ours)]
+        other = [e for e in events if e not in kern]
+        print(f"[api profile] get_control + drive, ms per step (torch.profiler,"
+              f" {card}): wall {prof_ms:.3f} profiled; device: kernels K4 + K2 "
+              f"+ K3 {per(kern):.3f} (" + ", ".join(
+                  f"{e.key[:40]} {per([e]):.4f}" for e in kern) + f"), other "
+              f"device time {per(other):.3f} over "
+              f"{sum(e.count for e in other) / API_PROFILE_STEPS:.0f} device "
+              f"events; idle {100.0 * (1.0 - per(events) / prof_ms):.1f} %",
+              flush=True)
+    finally:
+        api.mpc_step = step_fn
 
 
 def main():
@@ -1015,17 +1213,20 @@ def main():
         k5_times[n] = (
             cuda_ms(lambda: mapping.writeback_extract_cuda(stack[:n], *args), 20),
             cuda_ms(lambda: mapping.writeback_extract_plain(stack[:n], *args), 5))
-    args = lanes_of(LIDAR_B)
-    k5_bound = bound(
-        nbytes(stack[:LIDAR_B], args,
-               mapping.writeback_extract_cuda(stack[:LIDAR_B], *args)),
-        count_ops(lambda: mapping.writeback_extract_plain(stack[:LIDAR_B],
-                                                          *args)))
+    k5_bounds = {}
+    for n in (LIDAR_B, B):
+        args = lanes_of(n)
+        k5_bounds[n] = bound(
+            nbytes(stack[:n], args, mapping.writeback_extract_cuda(stack[:n],
+                                                                   *args)),
+            count_ops(lambda: mapping.writeback_extract_plain(stack[:n], *args)))
+    k5_bound = k5_bounds[LIDAR_B]
     k5_ms, k5_plain_ms = k5_times[LIDAR_B]
     print("[K5] " + ", ".join(f"B={n}: kernel {k:.4f} ms, plain {p:.4f} ms"
                               for n, (k, p) in k5_times.items())
-          + f"; bound at B={LIDAR_B} {k5_bound[0]:.4f} ms ({k5_bound[1]}) "
-          f"({card})", flush=True)
+          + "; bound " + ", ".join(f"at B={n} {b[0]:.4f} ms ({b[1]})"
+                                   for n, b in k5_bounds.items())
+          + f" ({card})", flush=True)
 
     # ---- phase 14: K6 vs plain and vs K5 ----
     packed = mapping.pack_rows(stack)
@@ -1452,6 +1653,10 @@ def main():
                 misses.append(f"{key} {par[key]:.3e} > {bar}")
     if misses:
         raise AssertionError(f"oracle lap bars missed on the card: {misses}")
+
+    # ---- phase 21: the two-call loop through the object API ----
+    api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
+              reset_counts, read_counts, expect)
 
     def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
             source=None):

@@ -119,6 +119,16 @@ def drive(state: CarState, path: PathData, v, delta, length: float,
     return dataclasses.replace(state, x=x, y=y, psi=psi, s=s)
 
 
+def spatial_derivatives(e_y, e_psi, v, delta, kappa, length: float):
+    """Spatial-domain derivatives d(e_y, e_psi, t)/ds, stacked on the last
+    axis (reference: spatial_bicycle_models.py:368-389)."""
+    s_dot = v * torch.cos(e_psi) / (1.0 - e_y * kappa)
+    psi_dot = v / length * torch.tan(delta)
+    return torch.stack([v * torch.sin(e_psi) / s_dot,
+                        psi_dot / s_dot - kappa,
+                        1.0 / s_dot], -1)
+
+
 def linearize(v_ref, kappa_ref, delta_s):
     """Exact LTV triple (f, A, B) of the spatial model around the reference,
     over any leading shape::

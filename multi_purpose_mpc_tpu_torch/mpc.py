@@ -6,6 +6,10 @@ select the corridor (kernel K2), assemble + solve the QP and compute the
 violation floor (kernel K1), then accept the plan or replay the cached one.
 Statuses, acceptance and replay are per-lane values, never exceptions.
 
+:func:`mpc_step` is the single-lane step of the object API: the corridor
+read from the live grid (kernels K4 and K2), then per-lane assembly and
+kernel K3.
+
 Per-lane cost weights (:class:`WeightSet`, a controller-tuning sweep)
 assemble per-lane QPs here and solve them with kernel K3; the opt-in
 escalation pass (:func:`escalate_rejects`) re-solves the worst rejected
@@ -22,16 +26,17 @@ import torch
 
 from multi_purpose_mpc_tpu_torch.config import MPCConfig, ModelConfig
 from multi_purpose_mpc_tpu_torch.models.bicycle import (
-    CarState, linearize, locate_waypoint, t2s)
+    CarState, horizon_indices, linearize, locate_waypoint, s2t, t2s)
 from multi_purpose_mpc_tpu_torch.ops import admm
 from multi_purpose_mpc_tpu_torch.ops.admm_cuda import (
     solve_ltv_qp_structured, solve_mpc_qp_fused)
 from multi_purpose_mpc_tpu_torch.ops.constraints import (
-    Corridor, SegmentCandidates, corridor_from_segments)
+    Corridor, SegmentCandidates, corridor_from_segments, update_path_constraints)
+from multi_purpose_mpc_tpu_torch.ops.grid import GridMap
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     corridor_select_from_block, gather_horizon_block, solver_inputs_from_block)
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import LTVQP, LTVSolution
-from multi_purpose_mpc_tpu_torch.ops.path import PathData
+from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
 
 _EPS = 1e-12
 
@@ -339,3 +344,46 @@ def mpc_step_batched(state: CarState, path: PathData, cfg: MPCConfig,
     horizon = solver_inputs_from_block(blk, cfg.max_segments)
     return mpc_step_batched_with_corridor(state, cfg, model, located,
                                           corridor, horizon, weights=weights)
+
+
+def mpc_step(state: CarState, path: PathData, grid: GridMap, cfg: MPCConfig,
+             model: ModelConfig,
+             segments: Optional[SegmentCandidates] = None) -> ControlOutput:
+    """One control step (MPC.get_control, MPC.py:161-222) on the grid as it
+    is now: locate, corridor, horizon gather, assembly and violation floor
+    (:func:`mpc_pre_solve`), solve, accept or replay
+    (:func:`mpc_post_solve`).  The state has a batch axis (1 for the
+    object API's car); no escalation pass runs.
+
+    The corridor is :func:`~.ops.constraints.update_path_constraints` from
+    ``wp_id + 1`` on ``grid`` (kernels K4 and K2 on the card), or, given
+    the static-grid ``segments`` of every waypoint, the selection from
+    them.  The solve is :func:`~.ops.admm_cuda.solve_ltv_qp_structured`
+    (kernel K3 on the card), the TPU entry ``solve_ltv_qp_pallas`` where
+    the JAX function calls its XLA solver: the step size resumes from the
+    carry and ``eps_d`` comes from max(|q_x|, |q_u|)."""
+    located = mpc_locate(state, path)
+    wp_id = located[0]
+    sm = model.safety_margin
+    if segments is None:
+        corridor = update_path_constraints(
+            grid, path, wp_id + 1, cfg.N, 2.0 * sm, sm,
+            n_samples=cfg.n_scan_samples, max_segments=cfg.max_segments)
+    else:
+        corridor = mpc_corridor(wp_id, path, cfg, model, segments)
+    idx = horizon_indices(path, wp_id, cfg.N)
+    horizon = (path.v_ref[idx], path.kappa[idx], path.seg_dist[idx])
+    qp, aux = mpc_pre_solve(state, cfg, model, located, corridor, horizon)
+    sol = solve_ltv_qp_structured(qp, state.solver, cfg.solver)
+    return mpc_post_solve(state, sol, aux, cfg, model)
+
+
+def predict_world_positions(path: PathData, wp_id, X_pred: torch.Tensor):
+    """World x / y (B, N+1) of the predicted spatial states ``X_pred``
+    (B, N+1, 3) along the horizon from ``wp_id`` (B,) (MPC.py:224-248,
+    all N+1 points)."""
+    N = X_pred.shape[-2] - 1
+    offs = torch.arange(N + 1, device=X_pred.device)
+    idx = gather_waypoint_index(path, wp_id.long()[:, None], offs[None, :])
+    x, y, _ = s2t(path, idx, X_pred[..., 0], X_pred[..., 1])
+    return x, y

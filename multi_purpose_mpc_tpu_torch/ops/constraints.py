@@ -12,12 +12,15 @@
 
 :func:`select_corridor` keeps the JAX package's atan2 formulation; the
 main path's selection is kernel K2 (:mod:`.corridor_cuda`), whose twin uses
-the kernel's cross-product formulation.
+the kernel's cross-product formulation.  :func:`update_path_constraints`,
+the corridor of a lane read from the grid as it is now, runs the
+dynamic-grid machinery: kernel K4, the free runs and K2.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -198,3 +201,62 @@ def corridor_from_segments(path: PathData, all_segs: SegmentCandidates,
     offs = torch.arange(N, device=wp_id.device)
     idx = gather_waypoint_index(path, wp_id.long()[:, None], offs[None, :])
     return select_corridor(path, idx, all_segs.index(idx), safety_margin)
+
+
+# per-path tables of update_path_constraints: PathData -> {key: tables}
+_PATH_TABLES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def corridor_tables(grid: GridMap, path: PathData, N: int, n_samples: int,
+                    max_segments: int):
+    """The :class:`~.corridor_extract.ScanlineTable` of ``path`` on
+    ``grid``'s geometry and a window table whose corridor stages start at
+    the base waypoint itself (:func:`~.horizon_table.window_table`, no
+    segments): ``(scan, table)``, built at the first call and cached
+    against the path.  Both depend on the static border points and the
+    grid's geometry, never on its occupancy."""
+    from multi_purpose_mpc_tpu_torch.ops.corridor_extract import build_scanline_table
+    from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
+        empty_segments, window_table)
+
+    per_path = _PATH_TABLES.setdefault(path, {})
+    key = (N, n_samples, max_segments, tuple(grid.occ.shape),
+           id(grid.origin), id(grid.resolution))
+    hit = per_path.get(key)
+    # the entry holds the geometry tensors it was built from, so their
+    # ids cannot be reused while it lives
+    if hit is None or hit[0] is not grid.origin or hit[1] is not grid.resolution:
+        scan = build_scanline_table(grid, path, n_samples)
+        table = window_table(path, empty_segments(path.n_wp, max_segments,
+                                                  path.x.device), N, start=0)
+        hit = per_path[key] = (grid.origin, grid.resolution, scan, table)
+    return hit[2], hit[3]
+
+
+def update_path_constraints(grid: GridMap, path: PathData, wp_id, N: int,
+                            min_width, safety_margin,
+                            n_samples: int = 128,
+                            max_segments: int = 8) -> Corridor:
+    """Corridor of the ``N`` waypoints from ``wp_id`` (0-d or (B,)) read
+    from ``grid`` as it is now (reference_path.py:522-648; the control step
+    passes ``wp_id + 1, N, 2 * safety_margin, safety_margin``).  Returns a
+    :class:`Corridor` of (B, N).
+
+    Kernel K4 reads the scanline samples of the cached
+    :func:`corridor_tables`, the free runs are found and written into the
+    window block, and kernel K2 selects: on a CUDA grid the kernels, on a
+    CPU grid their plain versions.  ``N`` is any horizon K2 takes
+    (1 <= N <= 513)."""
+    from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select
+    from multi_purpose_mpc_tpu_torch.ops.corridor_extract import fleet_dynamic_segments
+    from multi_purpose_mpc_tpu_torch.ops.horizon_table import horizon_block_from_segments
+
+    scan, table = corridor_tables(grid, path, N, n_samples, max_segments)
+    dev = grid.device
+    wp = torch.as_tensor(wp_id, device=dev).reshape(-1).long()
+    offs = torch.arange(N, device=dev)
+    idx = gather_waypoint_index(path, wp[:, None], offs[None, :])
+    segs = fleet_dynamic_segments(grid.occ, scan, idx, min_width, max_segments)
+    blk = horizon_block_from_segments(table, gather_waypoint_index(path, wp, 0),
+                                      segs)
+    return corridor_select(blk, max_segments, safety_margin)

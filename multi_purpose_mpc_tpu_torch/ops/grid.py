@@ -116,3 +116,37 @@ def add_obstacles(grid: GridMap, cx, cy, radius, active=None) -> GridMap:
     r_px = torch.ceil(radius / grid.resolution).to(torch.int32)
     px, py = w2m(grid, cx, cy)
     return rasterize_disks_px(grid, px, py, r_px, active)
+
+
+def lookup_world(grid: GridMap, x, y, oob_value: float = 0.0) -> torch.Tensor:
+    """Occupancy lookup at world coordinates."""
+    px, py = w2m(grid, x, y)
+    return lookup(grid, px, py, oob_value)
+
+
+def add_boundary(grid: GridMap, start_xy, end_xy,
+                 n_samples: int = 1024) -> GridMap:
+    """Rasterize line boundaries into a new grid (reference: map.py:139-155).
+
+    As in the JAX package, each segment is sampled at ``n_samples`` evenly
+    spaced points between its end cells, interpolated in pixel space and
+    rounded to the nearest cell (half to even), and the hit cells are set
+    to 0: every cell on the line is covered while ``n_samples`` is at
+    least the segment's pixel length.
+    """
+    from multi_purpose_mpc_tpu_torch.ops.rays import unit_linspace  # rays imports this module
+
+    dev = grid.device
+    f32 = torch.float32
+    start_xy = torch.as_tensor(start_xy, dtype=f32, device=dev).reshape(-1, 2)
+    end_xy = torch.as_tensor(end_xy, dtype=f32, device=dev).reshape(-1, 2)
+    sx, sy = w2m(grid, start_xy[:, 0], start_xy[:, 1])
+    ex, ey = w2m(grid, end_xy[:, 0], end_xy[:, 1])
+    t = unit_linspace(n_samples, dev)[None, :]
+    px = torch.round(sx[:, None] + (ex - sx)[:, None] * t).to(torch.int32)
+    py = torch.round(sy[:, None] + (ey - sy)[:, None] * t).to(torch.int32)
+    h, w = grid.occ.shape
+    occ = grid.occ.clone()
+    occ[py.reshape(-1).clamp(0, h - 1).long(),
+        px.reshape(-1).clamp(0, w - 1).long()] = 0.0
+    return dataclasses.replace(grid, occ=occ)

@@ -40,13 +40,20 @@ def _cols(S: int):
 def build_horizon_table(path: PathData, segs: SegmentCandidates,
                         cfg: MPCConfig) -> torch.Tensor:
     """(n_wp, N, F) float32 window table; see the module docstring."""
-    N = cfg.N
+    return window_table(path, segs, cfg.N)
+
+
+def window_table(path: PathData, segs: SegmentCandidates, N: int,
+                 start: int = 1) -> torch.Tensor:
+    """:func:`build_horizon_table` for a horizon of ``N`` stages whose
+    corridor stages begin at waypoint ``w + start`` (the control step's
+    ``start = 1``; a corridor asked for from ``w`` itself takes 0)."""
     S = segs.valid.shape[-1]
     n_wp = path.n_wp
     dev = path.x.device
     w = torch.arange(n_wp, device=dev)[:, None]
     offs = torch.arange(N, device=dev)[None, :]
-    idxc = gather_waypoint_index(path, w + 1, offs)  # corridor stages
+    idxc = gather_waypoint_index(path, w + start, offs)  # corridor stages
     idxs = gather_waypoint_index(path, w, offs)  # solver stages
     prev = torch.cat([idxc[:, :1], idxc[:, :-1]], 1)
     # trig in float64, rounded once: the table comes out the same on every

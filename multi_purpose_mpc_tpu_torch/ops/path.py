@@ -29,9 +29,12 @@ def wrap_angle_np(a):
     return np.mod(a + np.pi, 2.0 * np.pi) - np.pi
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class PathData:
-    """Struct-of-arrays reference path (one tensor per waypoint attribute)."""
+    """Struct-of-arrays reference path (one tensor per waypoint attribute).
+
+    Compared and hashed by identity, so that per-path tables can be cached
+    against it (:func:`~.constraints.update_path_constraints`)."""
 
     x: torch.Tensor  # (n,) world x
     y: torch.Tensor  # (n,) world y
@@ -159,6 +162,11 @@ def build_reference_path(grid: GridMap, cfg: PathConfig) -> PathData:
                     seg_len=f32(seg_len), cum_len=f32(cum_len),
                     seg_dist=f32(seg_dist), length=f32(length),
                     circular=cfg.circular)
+
+
+def w2m_pair(grid: GridMap, x, y):
+    px, py = w2m(grid, x, y)
+    return px, py
 
 
 def gather_waypoint_index(path: PathData, wp_id, offset):

@@ -592,3 +592,86 @@ def test_k2_square_root_is_sqrtf_on_every_float(cuda_device):
     """K2's branch-free square root equals sqrtf on all 2^32 inputs (NaN
     equal to NaN): the kernel's bitwise agreement rests on it."""
     assert corridor_cuda.sqrt_mismatches(cuda_device) == 0
+
+
+def _plain_corridor(grid, path, wp, N, min_width, sm, n_samples, S):
+    """update_path_constraints through the plain versions of K4 and K2 on
+    the same tensors and cached tables."""
+    from multi_purpose_mpc_tpu_torch.ops import constraints as cons
+    from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
+        horizon_block_from_segments)
+    from multi_purpose_mpc_tpu_torch.ops.path import gather_waypoint_index
+
+    scan, table = cons.corridor_tables(grid, path, N, n_samples, S)
+    idx = gather_waypoint_index(path, wp.long()[:, None],
+                                torch.arange(N, device=wp.device)[None, :])
+    h = corridor_extract.horizon_tables(scan, idx)
+    segs = corridor_extract.horizon_segments(
+        corridor_extract.extract_occ_gather(grid.occ, h.px, h.py), h,
+        min_width, S)
+    blk = horizon_block_from_segments(
+        table, gather_waypoint_index(path, wp.long(), 0), segs)
+    return corridor_cuda.corridor_select_plain(blk, S, sm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 12, 30, 60])
+def test_update_path_constraints_on_card_bitwise_equals_plain(cuda_sc, N):
+    """The object API's corridor (K4, the free runs, K2) against the same
+    function through the plain versions, bitwise, B = 1, at waypoints
+    whose horizon wraps past the end of the circular path."""
+    from multi_purpose_mpc_tpu_torch.ops import constraints as cons
+
+    grid, path, cfg = cuda_sc["grid"], cuda_sc["path"], cuda_sc["cfg"]
+    sm = cuda_sc["model"].safety_margin
+    S = cfg.max_segments
+    for wp in (0, 57, path.n_wp - 5, path.n_wp - 1):
+        w = torch.tensor([wp], dtype=torch.int32, device=grid.device)
+        k4 = corridor_extract.extract_occ_cuda.launches
+        k2 = corridor_cuda.corridor_select_cuda.launches
+        out = cons.update_path_constraints(grid, path, w, N, 2.0 * sm, sm,
+                                           cfg.n_scan_samples, S)
+        assert corridor_extract.extract_occ_cuda.launches == k4 + 1
+        assert corridor_cuda.corridor_select_cuda.launches == k2 + 1
+        ref = _plain_corridor(grid, path, w, N, 2.0 * sm, sm,
+                              cfg.n_scan_samples, S)
+        assert out.ub.shape == (1, N)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), (wp, N)
+
+
+@pytest.mark.cuda
+def test_get_control_launches_k4_k2_k3_once(cuda_device):
+    """One step of the object API's two-call loop on the card runs K4, K2
+    and K3 once each and no other kernel."""
+    from multi_purpose_mpc_tpu_torch import api
+
+    map_cfg, path_cfg, model, cfg, speed_cfg, obstacles = sim_track_preset(ASSETS)
+    m = api.Map(map_cfg.file_path, map_cfg.origin, map_cfg.resolution,
+                device=cuda_device)
+    rp = api.ReferencePath(m, path_cfg.wp_x, path_cfg.wp_y,
+                           path_cfg.resolution, path_cfg.smoothing_distance,
+                           path_cfg.max_width, path_cfg.circular)
+    m.add_obstacles([api.Obstacle(*o) for o in obstacles])
+    car = api.BicycleModel(rp, model.length, model.width, model.Ts)
+    kmax = np.tan(cfg.delta_max) / car.length
+    ctrl = api.MPC(car, cfg.N, np.diag(cfg.Q), np.diag(cfg.R), np.diag(cfg.QN),
+                   {"xmin": np.full(3, -np.inf), "xmax": np.full(3, np.inf)},
+                   {"umin": np.array([0.0, -kmax]),
+                    "umax": np.array([cfg.v_max, kmax])}, cfg.ay_max)
+    rp.compute_speed_profile(speed_cfg)
+    counters = ((corridor_extract.extract_occ_cuda, "launches", 1),
+                (corridor_cuda.corridor_select_cuda, "launches", 1),
+                (admm_cuda.solve_ltv_qp_structured_cuda, "launches", 1),
+                (admm_cuda.solve_ltv_qp_structured_cuda, "launches_cr", 0),
+                (admm_cuda.solve_mpc_qp_fused_cuda, "launches", 0),
+                (admm_cuda.solve_mpc_qp_fused_cuda, "launches_cr", 0),
+                (mapping.writeback_extract_cuda, "launches", 0),
+                (mapping.writeback_extract_packed_cuda, "launches", 0))
+    before = [getattr(fn, attr) for fn, attr, _ in counters]
+    u = ctrl.get_control()
+    for (fn, attr, n), b in zip(counters, before):
+        assert getattr(fn, attr) == b + n, (fn.__name__, attr)
+    assert u.shape == (2,) and np.isfinite(u).all() and u[0] > 0
+    car.drive(u)
+    assert car.s > 0.0 and ctrl.infeasibility_counter == 0
