@@ -4,7 +4,8 @@
 
 Drives the port's paths — the Sim_Track obstacle-avoidance fleet on a
 static and on a dynamic grid, per-lane weight sweeps, the escalation pass,
-Real_Track, LiDAR in the loop and the reference-mirroring object API;
+Real_Track, LiDAR in the loop, the reference-mirroring object API and the
+fleets sharded over torch.distributed ranks;
 N = 30, S = 8, K = 128, the production solver budget — through their
 public entry points, in phases:
 
@@ -105,9 +106,29 @@ public entry points, in phases:
     (a)'s controls bit for bit; the median and p99 wall ms per step of
     ``get_control``, ``drive`` and (b) ``scan`` + ``update_map``, and a
     torch.profiler split of ``get_control`` into kernel and other device
+    time;
+22. the scale-out path (``parallel/``), checkpoint / resume and the
+    profiling helpers: (a) ``init_distributed`` over NCCL at world size 1
+    (localhost coordinates), ``simulate_fleet_sharded`` on phase 5's fleet
+    (B = 4096 x 50): K1 = K2 = 50 launches, the log bitwise equal to phase
+    5's, ``fleet_metrics`` under the mesh equal to the unsharded ones (max
+    |e_y| bit for bit, the means within 1e-6 relative); (b) two gloo ranks
+    on the one card (NCCL takes one GPU a rank), started by file path
+    (tests/torch_dist_worker.py) with a timeout, the kernels built by this
+    process: phase 16's packed discovery fleet split over the ranks, each
+    rank's log and final maps bitwise equal to the same lanes of phase 16's
+    run (K6 = K2 = K1 = 50 a rank), and a shared-grid fleet with
+    ``clear_free`` (B = 1024 x 50, dense write-back, the masks pooled by
+    one all-reduce per mask class a step), both ranks' maps and logs
+    bitwise equal to an unsharded run here (K4 = K2 = K1 = 50); (c) 25
+    static steps, ``save_fleet_state``, ``load_fleet_state``, 25 steps:
+    the log bitwise equal to phase 5's; (d) a ``[profiling]`` line:
+    ``timeit`` of one static step beside CUDA events and phase 5's wall
+    per step, ``scan_marginal_cost`` of K2 beside its ``[K2 scaling]``
     time.
 
-Prints a JSON line with each kernel's launches, error, times and bound
+Prints a JSON line with each kernel's launches (its path's phase and
+phase 22), error, times and bound
 (``bound_ms`` from the bytes each kernel must move and the float32
 operations of its plain version, counted in this run, against the H100
 SXM's 3.35 TB/s and 67 TFLOP/s), the card's name and power limit, and as
@@ -187,6 +208,11 @@ SWEEP_ROWS = ("reference", "strictly_convex", "time_optimal")
 # the production budget, the replayed plan leaves the corridor), so the
 # bar is a share of the row's lanes.
 SWEEP_FAILED_MAX = 0.01
+# phase 22: two gloo ranks on the one card (NCCL takes one GPU a rank), the
+# seconds they may take together, and the split of the checkpointed run
+SCALE_RANKS = 2
+RANK_TIMEOUT = 600
+CKPT_STEPS = 25
 
 
 def gpu_line() -> str:
@@ -652,6 +678,205 @@ def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
         api.mpc_step = step_fn
 
 
+
+def lanes_of(log, sl):
+    """The lanes ``sl`` of a (T, B) log, on the host."""
+    return type(log)(*(f[:, sl].cpu() for f in log))
+
+
+def metrics_match(got, ref, label):
+    """Raise unless two ``fleet_metrics`` results agree: max |e_y| bit for
+    bit, the means within 1e-6 relative."""
+    for k, r in ref.items():
+        g, r = got[k].cpu(), r.cpu()
+        ok = (torch.equal(g, r) if k == "max_abs_e_y"
+              else bool((g - r).abs() <= 1e-6 * r.abs()))
+        if not ok:
+            raise AssertionError(f"{label}: fleet_metrics {k} {float(g)!r} "
+                                 f"vs {float(r)!r}")
+
+
+def scale_out_phase(s, card, reset_counts, read_counts, expect):
+    """Phase 22 (module docstring): the sharded fleets over
+    ``torch.distributed`` (NCCL at world size 1; two gloo ranks on the one
+    card), checkpoint / resume and the profiling helpers.  Returns the
+    phase's kernel launches, its ranks' included."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dist_worker import free_port, launch
+
+    from multi_purpose_mpc_tpu_torch.config import SimConfig
+    from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select_cuda
+    from multi_purpose_mpc_tpu_torch.parallel.fleet import (
+        gather_fleet, simulate_fleet_sharded)
+    from multi_purpose_mpc_tpu_torch.parallel.mesh import (fleet_metrics,
+                                                           global_fleet_mesh,
+                                                           init_distributed)
+    from multi_purpose_mpc_tpu_torch.simulation import (simulate_fleet,
+                                                        simulate_lidar_fleet)
+    from multi_purpose_mpc_tpu_torch.utils.checkpoint import (
+        load_fleet_state, save_fleet_state)
+    from multi_purpose_mpc_tpu_torch.utils.profiling import (
+        scan_marginal_cost, timeit)
+
+    grid, path, cfg, model = s["grid"], s["path"], s["cfg"], s["model"]
+    fleet, table, static_log = s["fleet"], s["table"], s["static_log"]
+    total = expect()
+
+    def count(got, want, label):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}")
+        for k, v in got.items():
+            total[k] += v
+        return {k: v for k, v in got.items() if v}
+
+    # (a) NCCL at world size 1: the sharded static fleet is the fleet
+    if not init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("init_distributed returned False with coordinates")
+    try:
+        if dist.get_backend() != dist.Backend.NCCL:
+            raise AssertionError(f"backend {dist.get_backend()}, not NCCL")
+        mesh = global_fleet_mesh()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = simulate_fleet_sharded(mesh, grid, path, cfg, model,
+                                     SimConfig(max_steps=STEPS), fleet)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_counts()
+        metrics = fleet_metrics(res.log, path.length, mesh)
+        res = gather_fleet(res, mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    got = count(got, expect(admm_fused=STEPS, corridor_select=STEPS), "(a)")
+    same_log(res.log, static_log, "(a) sharded fleet vs phase 5", static_log._fields)
+    metrics_match(metrics, fleet_metrics(static_log, path.length),
+                  "(a) under the mesh vs unsharded")
+    print(f"[scale-out] (a) simulate_fleet_sharded over NCCL at world size "
+          f"1, B={B} x {STEPS} steps: launches {got}; log bitwise equal to "
+          f"phase 5's; fleet_metrics under the mesh equal the unsharded "
+          f"ones ({', '.join(f'{k} {float(v):.6f}' for k, v in metrics.items())}"
+          f"); {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall, horizon "
+          f"table built inside) on {card}", flush=True)
+
+    # (b) two gloo ranks on the one card: the per-lane discovery fleet of
+    # phase 16 and a shared-grid fleet, each split over the ranks
+    free, fleet16, dyn_sim = s["free"], s["fleet16"], s["dyn_sim"]
+    lidar_kw = dict(table=s["scan"], cells=s["cells"])
+    nb = fleet16.batch
+    reset_counts()
+    t0 = time.perf_counter()
+    shared_ref, shared_occ = simulate_lidar_fleet(
+        grid, free, path, cfg, model, dyn_sim, s["lidar"], fleet16,
+        shared_grid=True, clear_free=True, **lidar_kw)
+    torch.cuda.synchronize()
+    dt_shared = time.perf_counter() - t0
+    count(read_counts(), expect(admm_fused=STEPS, corridor_select=STEPS,
+                                extract_occ=STEPS), "(b) unsharded shared")
+    spec = dict(device="cuda", grid=grid, path=path, cfg=cfg, model=model,
+                lidar=s["lidar"], known=free, tasks=dict(
+                    lanes=dict(kind="lidar", sim=dyn_sim, state=fleet16,
+                               kw=lidar_kw),
+                    shared=dict(kind="lidar", sim=dyn_sim, state=fleet16,
+                                kw=dict(shared_grid=True, clear_free=True,
+                                        **lidar_kw))))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = launch(spec, SCALE_RANKS, d, RANK_TIMEOUT)
+        dt_ranks = time.perf_counter() - t0
+    lane_ref, lane_occ = s["disc_packed"]
+    for r, out in enumerate(ranks):
+        sl = slice(*out["lanes"]["lanes"])
+        count(out["lanes"]["launches"], expect(
+            admm_fused=STEPS, corridor_select=STEPS,
+            writeback_extract_packed=STEPS), f"(b) rank {r} per-lane")
+        same_log(out["lanes"]["result"].log, lanes_of(lane_ref.log, sl),
+                 f"(b) rank {r} per-lane vs phase 16", static_log._fields)
+        if not torch.equal(out["lanes"]["occ"], lane_occ[sl].cpu()):
+            raise AssertionError(f"(b) rank {r}: per-lane maps differ from "
+                                 "phase 16's")
+        count(out["shared"]["launches"], expect(
+            admm_fused=STEPS, corridor_select=STEPS, extract_occ=STEPS),
+            f"(b) rank {r} shared")
+        same_log(out["shared"]["result"].log, lanes_of(shared_ref.log, sl),
+                 f"(b) rank {r} shared vs unsharded", static_log._fields)
+        if not torch.equal(out["shared"]["occ"], shared_occ.cpu()):
+            raise AssertionError(f"(b) rank {r}: shared map differs from the "
+                                 "unsharded one")
+        metrics_match(out["lanes"]["metrics"],
+                      fleet_metrics(lane_ref.log, path.length),
+                      f"(b) rank {r} per-lane")
+        metrics_match(out["shared"]["metrics"],
+                      fleet_metrics(shared_ref.log, path.length),
+                      f"(b) rank {r} shared")
+    found = int((free.occ - shared_occ).sum())
+    for task, label in (("lanes", "per-lane packed maps (K6)"),
+                        ("shared", "shared map, clear_free (K4)")):
+        rates = ", ".join(
+            f"rank {r} {(nb // SCALE_RANKS) * STEPS / out[task]['seconds']:.1f}"
+            for r, out in enumerate(ranks))
+        print(f"[scale-out] (b) {SCALE_RANKS} gloo ranks on one card, "
+              f"B={nb} x {STEPS} steps, {label}: each rank's log, final "
+              f"maps and launches "
+              f"{ {k: v for k, v in ranks[0][task]['launches'].items() if v} }"
+              f" as the "
+              f"unsharded run's lanes, bitwise; car-steps/s {rates} (each "
+              f"rank's own rollout); unsharded shared run "
+              f"{nb * STEPS / dt_shared:.1f}, {found} cells found; both "
+              f"ranks {dt_ranks:.2f} s wall with their start-up, on {card}",
+              flush=True)
+
+    # (c) checkpoint / resume: 25 steps, save, load, 25 steps = phase 5
+    reset_counts()
+    t0 = time.perf_counter()
+    first = simulate_fleet(grid, path, cfg, model,
+                           SimConfig(max_steps=CKPT_STEPS), fleet, table=table)
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "fleet.npz")
+        save_fleet_state(ck, first.final_state, step=CKPT_STEPS)
+        state, step = load_fleet_state(ck, like=first.final_state)
+    rest = simulate_fleet(grid, path, cfg, model,
+                          SimConfig(max_steps=STEPS - CKPT_STEPS), state,
+                          table=table)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    count(read_counts(), expect(admm_fused=STEPS, corridor_select=STEPS),
+          "(c)")
+    if step != CKPT_STEPS:
+        raise AssertionError(f"(c) checkpoint step {step}")
+    head = type(static_log)(*(f[:CKPT_STEPS] for f in static_log))
+    tail = type(static_log)(*(f[CKPT_STEPS:] for f in static_log))
+    same_log(first.log, head, "(c) first steps vs phase 5", static_log._fields)
+    same_log(rest.log, tail, "(c) resumed steps vs phase 5", static_log._fields)
+    print(f"[scale-out] (c) {CKPT_STEPS} steps, save_fleet_state, "
+          f"load_fleet_state, {STEPS - CKPT_STEPS} steps at B={B}: the log "
+          f"bitwise equal to phase 5's; {B * STEPS / dt:.1f} car-steps/s "
+          f"({dt:.3f} s wall with the checkpoint) on {card}", flush=True)
+
+    # (d) the profiling helpers beside the phases' own timings
+    one_step = lambda: simulate_fleet(grid, path, cfg, model,
+                                      SimConfig(max_steps=1), fleet,
+                                      table=table)
+    step_s = timeit(one_step, warmup=2, iters=10)
+    step_ev = cuda_ms(one_step, 10)
+    sm, S = model.safety_margin, cfg.max_segments
+    k2_s = scan_marginal_cost(
+        lambda b: corridor_select_cuda(b, S, sm), (s["blk"],),
+        lambda a, i: (torch.roll(a[0], i % 2, 0),), steps=64, repeats=3)
+    print(f"[profiling] timeit of one static step (B={B}, first step of "
+          f"phase 5's fleet, CUDA events, median of 10): {step_s * 1e3:.4f} "
+          f"ms; chip_smoke.cuda_ms of the same: {step_ev:.4f} ms; phase 5's "
+          f"wall per step over {STEPS} steps: {s['main_ms']:.4f} ms.  "
+          f"scan_marginal_cost of K2 (B={B}, 64 iterations on rolled "
+          f"blocks, best of 3): {k2_s * 1e3:.5f} ms, beside [K2 scaling]'s "
+          f"device time {s['k2_ms']:.5f} ms; on {card}", flush=True)
+    return total
+
+
 def main():
     # ---- phase 1: device ----
     if not torch.cuda.is_available():
@@ -701,22 +926,7 @@ def main():
               f"{sec:.2f} s", flush=True)
     print(f"[build] all six in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
-    # each kernel's launch counter: (wrapper, attribute); K1 and K3 count
-    # their Schur and their cyclic-reduction instantiations apart
-    counted = {"admm_fused": (admm_cuda.solve_mpc_qp_fused_cuda, "launches"),
-               "admm_fused_cr": (admm_cuda.solve_mpc_qp_fused_cuda,
-                                 "launches_cr"),
-               "corridor_select": (corridor_cuda.corridor_select_cuda,
-                                   "launches"),
-               "admm_structured": (admm_cuda.solve_ltv_qp_structured_cuda,
-                                   "launches"),
-               "admm_structured_cr": (admm_cuda.solve_ltv_qp_structured_cuda,
-                                      "launches_cr"),
-               "extract_occ": (corridor_extract.extract_occ_cuda, "launches"),
-               "writeback_extract": (mapping.writeback_extract_cuda,
-                                     "launches"),
-               "writeback_extract_packed": (
-                   mapping.writeback_extract_packed_cuda, "launches")}
+    counted = kernels.launch_counters()
 
     def expect(**launches):
         """The launch counts of a path: the named kernels, 0 for the rest."""
@@ -918,6 +1128,7 @@ def main():
     if launches != expect(admm_fused=STEPS, corridor_select=STEPS):
         raise AssertionError(f"main path launches {launches}")
     static_log = res.log
+    main_ms = dt / STEPS * 1e3
     h = health(res.log, res.final_state, path, model, STEPS)
     print(f"[main] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
           f"{fmt_health(h)} on {card}", flush=True)
@@ -1342,6 +1553,7 @@ def main():
     print("[discovery] fused and packed runs: logs and final maps bitwise "
           "equal", flush=True)
     breakdown(f"B={LIDAR_B}", fleet16, cells, disc_ms)
+    disc_packed = disc.pop("packed")  # phase 22's per-lane reference
     del disc
 
     # ---- phase 17: single car, LiDAR in the loop ----
@@ -1658,6 +1870,14 @@ def main():
     api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
               reset_counts, read_counts, expect)
 
+    # ---- phase 22: the scale-out path, checkpoint / resume, profiling ----
+    scale = scale_out_phase(dict(
+        grid=grid, path=path, cfg=cfg, model=model, fleet=fleet, table=table,
+        static_log=static_log, main_ms=main_ms, lidar=lidar, scan=scan,
+        cells=cells, free=free, fleet16=fleet16, dyn_sim=dyn_sim,
+        disc_packed=disc_packed, blk=blk, k2_ms=k2_ms), card, reset_counts,
+        read_counts, expect)
+
     def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
             source=None):
         return {"name": name, "route": "cuda",
@@ -1667,25 +1887,29 @@ def main():
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
-    # library_ms: one PyTorch call computing the same function exists only
-    # for K4 (advanced indexing); none solves the QPs, selects corridors or
-    # writes and reads a map in one call
+    # launches: the path's run in its phase plus phase 22's runs (its
+    # ranks' included).  library_ms: one PyTorch call computing the same
+    # function exists only for K4 (advanced indexing); none solves the QPs,
+    # selects corridors or writes and reads a map in one call
     print(json.dumps({"kernels": [
         row("corridor_select", "ops/corridor_pallas.py:38",
-            launches["corridor_select"], k2_err, k2_ms, k2_plain_ms, k2_bound),
-        row("admm_fused", "ops/admm_pallas.py:271", launches["admm_fused"],
-            k1_err, k1_ms, k1_plain_ms, k1_bound),
+            launches["corridor_select"] + scale["corridor_select"], k2_err,
+            k2_ms, k2_plain_ms, k2_bound),
+        row("admm_fused", "ops/admm_pallas.py:271",
+            launches["admm_fused"] + scale["admm_fused"], k1_err, k1_ms,
+            k1_plain_ms, k1_bound),
         row("admm_structured", "ops/admm_pallas.py:1001",
             sweep_launches["admm_structured"], k3_err, k3_ms, k3_plain_ms,
             k3_bound),
         row("extract_occ", "ops/corridor_extract.py:210",
-            dyn_launches["extract_occ"], k4_err, k4_ms, k4_plain_ms, k4_bound,
-            k4_lib_ms),
+            dyn_launches["extract_occ"] + scale["extract_occ"], k4_err, k4_ms,
+            k4_plain_ms, k4_bound, k4_lib_ms),
         row("writeback_extract", "ops/mapping_pallas.py:41",
             disc_launches["fused"]["writeback_extract"], k56_err, k5_ms,
             k5_plain_ms, k5_bound),
         row("writeback_extract_packed", "ops/mapping_pallas.py:169",
-            lidar_launches["writeback_extract_packed"], k56_err, k6_ms,
+            lidar_launches["writeback_extract_packed"]
+            + scale["writeback_extract_packed"], k56_err, k6_ms,
             k6_plain_ms, k6_bound),
         row("admm_fused_cr", "ops/admm_pallas.py:509",
             cr_launches["admm_fused_cr"], k1cr_err, k1cr_ms, k1cr_plain_ms,

@@ -11,8 +11,11 @@ Ported so far: the static-grid fleet main path, the dynamic-grid fleet
 the escalation pass, LiDAR in the loop (``simulate_lidar_fleet``,
 ``simulate_lidar_loop``) and the reference-mirroring object API (``Map``,
 ``ReferencePath``, ``BicycleModel``, ``MPC``, ``LidarModel``: the two-call
-loop ``u = mpc.get_control(); car.drive(u)``).  Entry points run on the
-card unless the caller names another device.
+loop ``u = mpc.get_control(); car.drive(u)``), fleets sharded over
+``torch.distributed`` ranks (``simulate_fleet_sharded``,
+``simulate_lidar_fleet_sharded``, ``fleet_metrics``), checkpoint / resume
+and the profiling helpers.  Entry points run on the card unless the
+caller names another device.
 
     config.py          typed configs + scenario presets (copied, not imported)
     utils/maps.py      map loading, obstacle rasterization
@@ -27,6 +30,11 @@ card unless the caller names another device.
     models/bicycle.py  CarState, frame transforms, plant, linearization
     mpc.py             the fleet control step, the single-lane mpc_step
     simulation.py      closed-loop rollouts (fleet and single car, LiDAR)
+    parallel/          the fleet mesh over torch.distributed ranks
+                       (mesh.py) and the sharded rollouts (fleet.py)
+    utils/checkpoint.py  fleet checkpoint / resume (.npz, torch.save)
+    utils/profiling.py   fence, trace, timeit, scan_marginal_cost
+    utils/tree.py      flat views of nested state (jax.tree's order)
     api.py             reference-mirroring object API
     utils/viz.py       post-hoc matplotlib rendering
     interop.py         state carried across from the JAX package
@@ -52,12 +60,20 @@ from multi_purpose_mpc_tpu_torch.models.bicycle import CarState, init_car_state
 from multi_purpose_mpc_tpu_torch.mpc import WeightSet, weights_from_config
 from multi_purpose_mpc_tpu_torch.api import (MPC, BicycleModel, LidarModel,
                                              Map, Obstacle, ReferencePath)
+from multi_purpose_mpc_tpu_torch.parallel.fleet import (
+    gather_fleet, simulate_fleet_sharded, simulate_lidar_fleet_sharded)
+from multi_purpose_mpc_tpu_torch.parallel.mesh import (
+    FleetMesh, fleet_mesh, fleet_metrics, global_fleet_mesh, init_distributed,
+    local_lane_slice, round_up_batch)
+from multi_purpose_mpc_tpu_torch.utils.checkpoint import (load_fleet_state,
+                                                          save_fleet_state)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BicycleModel",
     "CarState",
+    "FleetMesh",
     "GridMap",
     "LidarModel",
     "Map",
@@ -68,6 +84,17 @@ __all__ = [
     "add_boundary",
     "add_obstacles",
     "build_reference_path",
+    "fleet_mesh",
+    "fleet_metrics",
+    "gather_fleet",
+    "global_fleet_mesh",
+    "init_distributed",
+    "load_fleet_state",
+    "local_lane_slice",
+    "round_up_batch",
+    "save_fleet_state",
+    "simulate_fleet_sharded",
+    "simulate_lidar_fleet_sharded",
     "init_car_state",
     "m2w",
     "w2m",

@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multi_purpose_mpc_tpu_torch.config import LidarConfig
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap, lookup, m2w, w2m
@@ -485,6 +486,23 @@ def apply_observation_masks(occ: torch.Tensor, hitmask: torch.Tensor,
     if freemask is not None:
         occ = torch.where(freemask, torch.ones_like(occ), occ)
     return torch.where(hitmask, torch.zeros_like(occ), occ)
+
+
+def pool_observation_masks(hitmask: torch.Tensor,
+                           freemask: Optional[torch.Tensor], group):
+    """Pool a shared map's observation masks over the ranks of ``group``
+    (a ``torch.distributed`` process group): the logical or of every rank's
+    masks, one MAX all-reduce per mask class, on uint8 (NCCL and gloo both
+    reduce it; the JAX package's ``pmax`` takes float32).  The or is
+    order-free, so every rank gets the same masks as one device pooling
+    all lanes."""
+
+    def pooled(mask):
+        m = mask.to(torch.uint8)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        return m.bool()
+
+    return pooled(hitmask), None if freemask is None else pooled(freemask)
 
 
 def fleet_writeback(grid: GridMap, occ: torch.Tensor, x, y, psi,

@@ -44,7 +44,8 @@ from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     build_horizon_table, empty_segments, horizon_block_from_segments,
     solver_inputs_from_block)
 from multi_purpose_mpc_tpu_torch.ops.lidar import (
-    fleet_writeback, hit_pixels, occupied_cell_table, scan_fleet,
+    apply_observation_masks, fleet_observation_masks, fleet_writeback,
+    hit_pixels, occupied_cell_table, pool_observation_masks, scan_fleet,
     scatter_writeback_, waypoint_cell_table, waypoint_slack)
 from multi_purpose_mpc_tpu_torch.ops.mapping import (
     pack_rows, unpack_rows, writeback_extract, writeback_extract_packed)
@@ -289,7 +290,7 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
                          scan_backend: str = "auto",
                          writeback_backend: str = "auto",
                          prune_cells: bool = True,
-                         weights: Optional[WeightSet] = None):
+                         weights: Optional[WeightSet] = None, group=None):
     """Fleet LiDAR-in-the-loop rollout of ``sim.max_steps`` steps: every
     step each lane scans ``true_grid``, writes the hits into its known map,
     re-extracts its corridor from the updated map and solves.  The
@@ -311,9 +312,21 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     scan's table (:func:`resolve_cell_table`).  ``weights``: a per-lane
     :class:`~.mpc.WeightSet`.
 
+    ``group``: a ``torch.distributed`` process group whose ranks each run
+    a block of one fleet on one shared map (the counterpart of the JAX
+    package's ``axis_name``; :func:`~.parallel.fleet.simulate_lidar_fleet_sharded`
+    passes it).  Every step pools the observation masks over the group
+    (:func:`~.ops.lidar.pool_observation_masks`) before the one map update,
+    so every rank's map stays the same; it needs ``shared_grid`` and the
+    ``dense`` write-back.
+
     Returns ``(SimResult, final_known_occ)``: (B, H, W) per lane, or
     (H, W)."""
     _validate_weights(weights, state0)
+    if group is not None and not shared_grid:
+        raise ValueError("pooling maps over a process group needs "
+                         "shared_grid=True; per-lane maps shard with their "
+                         "lanes")
     dev = known_grid.device
     if table is None:
         # pure geometry: a resumed (B, H, W) stack builds from its frame
@@ -322,7 +335,8 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
             frame = dataclasses.replace(known_grid, occ=known_grid.occ[0])
         table = build_scanline_table(frame, path, cfg.n_scan_samples)
     scan_backend, writeback_backend = resolve_lidar_backends(
-        shared_grid, clear_free, scan_backend, writeback_backend, device=dev)
+        shared_grid, clear_free, scan_backend, writeback_backend,
+        multi_device=group is not None, device=dev)
     cells = resolve_cell_table(true_grid, path, lidar, cells, scan_backend,
                                prune=prune_cells)
     B = state0.batch
@@ -373,7 +387,13 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
 
     def step(st):
         scans = scans_of(st)
-        if writeback_backend == "dense":
+        if group is not None:
+            masks = fleet_observation_masks(known_grid, H, W, st.x, st.y,
+                                            st.psi, scans, lidar,
+                                            clear_free=clear_free, shared=True)
+            carry[0] = apply_observation_masks(
+                carry[0], *pool_observation_masks(*masks, group))
+        elif writeback_backend == "dense":
             carry[0] = fleet_writeback(known_grid, carry[0], st.x, st.y,
                                        st.psi, scans, lidar,
                                        clear_free=clear_free,

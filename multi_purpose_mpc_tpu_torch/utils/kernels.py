@@ -98,6 +98,29 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
 
 
+def launch_counters() -> dict:
+    """Each kernel's launch counter, ``{name: (wrapper, attribute)}``: a
+    wrapper adds one where it launches its kernel, and nowhere else.  K1
+    and K3 count their Schur and their cyclic-reduction instantiations
+    apart."""
+    from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
+                                                 corridor_extract, mapping)
+
+    return {"admm_fused": (admm_cuda.solve_mpc_qp_fused_cuda, "launches"),
+            "admm_fused_cr": (admm_cuda.solve_mpc_qp_fused_cuda,
+                              "launches_cr"),
+            "corridor_select": (corridor_cuda.corridor_select_cuda,
+                                "launches"),
+            "admm_structured": (admm_cuda.solve_ltv_qp_structured_cuda,
+                                "launches"),
+            "admm_structured_cr": (admm_cuda.solve_ltv_qp_structured_cuda,
+                                   "launches_cr"),
+            "extract_occ": (corridor_extract.extract_occ_cuda, "launches"),
+            "writeback_extract": (mapping.writeback_extract_cuda, "launches"),
+            "writeback_extract_packed": (
+                mapping.writeback_extract_packed_cuda, "launches")}
+
+
 def ptxas_report(name: str) -> str:
     """ptxas's resource report (registers, stack, shared memory, spills)
     of ``csrc/<name>.cu`` compiled with the build flags."""

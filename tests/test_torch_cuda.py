@@ -675,3 +675,74 @@ def test_get_control_launches_k4_k2_k3_once(cuda_device):
     assert u.shape == (2,) and np.isfinite(u).all() and u[0] > 0
     car.drive(u)
     assert car.s > 0.0 and ctrl.infeasibility_counter == 0
+
+
+# ---------------------------------------------------------------------------
+# The scale-out path on the card: NCCL at world size 1 (NCCL needs a GPU
+# per rank, and the box has one), and gloo all-reducing CUDA masks between
+# two ranks that share the card (tests/torch_dist_worker.py).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_sharded_fleet_on_nccl_world_one_equals_fleet(cuda_sc):
+    import torch.distributed as dist
+    from torch_dist_worker import free_port
+
+    from multi_purpose_mpc_tpu_torch.parallel import mesh as pm
+    from multi_purpose_mpc_tpu_torch.parallel.fleet import (
+        gather_fleet, simulate_fleet_sharded)
+
+    sc, sim = cuda_sc, SimConfig(max_steps=3)
+    ref = simulate_fleet(sc["grid"], sc["path"], sc["cfg"], sc["model"], sim,
+                         sc["fleet"], table=sc["table"])
+    assert pm.init_distributed(f"localhost:{free_port()}", 1, 0,
+                               device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = pm.global_fleet_mesh()
+        assert (mesh.rank, mesh.world_size) == (0, 1) and mesh.device.type == "cuda"
+        got = gather_fleet(simulate_fleet_sharded(
+            mesh, sc["grid"], sc["path"], sc["cfg"], sc["model"], sim,
+            sc["fleet"]), mesh)
+        m = pm.fleet_metrics(got.log, sc["path"].length, mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for name, a, b in zip(ref.log._fields, got.log, ref.log):
+        assert torch.equal(a, b), name
+    m_ref = pm.fleet_metrics(ref.log, sc["path"].length)
+    for k in m_ref:
+        assert torch.equal(m[k], m_ref[k]), k
+
+
+@pytest.mark.cuda
+def test_gloo_pools_cuda_masks_of_two_ranks_as_one_or(cuda_sc, tmp_path):
+    from torch_dist_worker import launch
+
+    from multi_purpose_mpc_tpu_torch.ops.grid import make_grid_map
+    from multi_purpose_mpc_tpu_torch.ops.lidar import (
+        apply_observation_masks, fleet_observation_masks, scan_fleet)
+
+    sc = cuda_sc
+    grid, fleet = sc["grid"], sc["fleet"]
+    lidar = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=192)
+    known = make_grid_map(torch.ones_like(grid.occ), grid.origin,
+                          grid.resolution, device=grid.device)
+    n = 16
+    x, y, psi = fleet.x[:n], fleet.y[:n], fleet.psi[:n]
+    scans = scan_fleet(grid, x, y, psi, lidar, backend="march")
+    h, w = known.occ.shape
+    hm, fm = fleet_observation_masks(known, h, w, x, y, psi, scans, lidar,
+                                     clear_free=True, shared=True)
+    ref = apply_observation_masks(known.occ, hm, fm)
+    spec = dict(device="cuda", grid=grid, path=sc["path"], cfg=sc["cfg"],
+                model=sc["model"], lidar=lidar, known=known,
+                tasks=dict(pool=dict(kind="pool", x=x, y=y, psi=psi,
+                                     scans=scans, clear_free=True)))
+    ranks = launch(spec, 2, str(tmp_path), timeout=300)
+    assert bool((ref < 0.5).any())
+    for r in ranks:
+        got = r["pool"]
+        assert torch.equal(got["hitmask"], hm.cpu())
+        assert torch.equal(got["freemask"], fm.cpu())
+        assert torch.equal(got["occ"], ref.cpu())

@@ -101,7 +101,12 @@ def test_port_never_imports_jax():
             "multi_purpose_mpc_tpu_torch.ops.cyclic_reduction, "
             "multi_purpose_mpc_tpu_torch.ops.lidar, "
             "multi_purpose_mpc_tpu_torch.ops.mapping, "
-            "multi_purpose_mpc_tpu_torch.interop, chip_smoke, "
+            "multi_purpose_mpc_tpu_torch.interop, "
+            "multi_purpose_mpc_tpu_torch.parallel.fleet, "
+            "multi_purpose_mpc_tpu_torch.parallel.mesh, "
+            "multi_purpose_mpc_tpu_torch.utils.checkpoint, "
+            "multi_purpose_mpc_tpu_torch.utils.profiling, chip_smoke, "
+            "tests.torch_dist_worker, "
             "tools.oracle_lap, tools.k2_compare, tools.k2_parts; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_purpose_mpc_tpu')]; "
