@@ -7,7 +7,10 @@ static and on a dynamic grid, per-lane weight sweeps, the escalation pass,
 Real_Track, LiDAR in the loop, the reference-mirroring object API and the
 fleets sharded over torch.distributed ranks;
 N = 30, S = 8, K = 128, the production solver budget — through their
-public entry points, in phases:
+public entry points, in phases.  On the card every rollout and the object
+API's control step replay CUDA graphs (``utils/graphs.py``), so phases
+5-22 run graphed and their walls include the capture; phase 23 holds
+each path's graph against its eager form.
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
 2. build: compiles the six CUDA kernels from
@@ -27,7 +30,10 @@ public entry points, in phases:
    also at B = 1, at a ragged B = 33 and at N = 60 (B = 256); the kernel's
    time at B = 1, 128, 1024 and 4096 beside its bound ([K1 scaling]);
 5. main path: ``simulate_fleet`` at B = 4096 for 50 steps; every kernel's
-   launch count equals the step count; bench.py's fleet-health gates;
+   launch count equals the step count; bench.py's fleet-health gates; the
+   rate of the whole call (the graphs' capture included) with that of the
+   replays beside it; a profiled 10-step rollout, whose device trace
+   holds each kernel once a step, as the wrappers' counters say;
 6. single car: ``simulate_closed_loop`` completes the lap within 250 steps
    with accept rate >= 0.9;
 7. K4 (scanline extraction) vs its plain version, bitwise: the (4096, 30,
@@ -125,7 +131,18 @@ public entry points, in phases:
     the log bitwise equal to phase 5's; (d) a ``[profiling]`` line:
     ``timeit`` of one static step beside CUDA events and phase 5's wall
     per step, ``scan_marginal_cost`` of K2 beside its ``[K2 scaling]``
-    time.
+    time;
+23. CUDA graphs: each path of phases 5-22 (the static fleet, Schur and
+    CR; the dynamic grid and its sweep; escalation; N = 60; Real_Track;
+    the LiDAR fleet, known = true; the discovery fleet, packed and fused;
+    the single-car lap and LiDAR loop; over NCCL at world size 1 the
+    sharded static fleet and a shared-grid fleet whose mask all-reduce is
+    captured) run graphed and then eagerly under
+    ``graphs.disable_capture()``: logs, final states and maps bitwise
+    equal, the same launches; eager, replay and capture times and peak
+    memory per path; the object API's lap and its LiDAR loop (``scan``
+    replays a graph too): controls and measurements bitwise equal, with
+    the median / p99 ms of ``get_control`` and ``scan`` both ways.
 
 Prints a JSON line with each kernel's launches (its path's phase and
 phase 22), error, times and bound
@@ -137,6 +154,7 @@ its last line
 Any failure raises (non-zero exit, no result line).  Imports no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -436,29 +454,63 @@ def first_lanes(obj, n):
     return obj
 
 
-def profile_steps(label, run, steps: int, wall: float, card: str):
-    """Device time by kernel over ``run()`` (a rollout of ``steps`` steps),
-    from torch.profiler's CUDA activity, and the device's idle share
-    against ``wall``, the ms per step of the same rollout unprofiled (the
-    profiler slows the host's launches, not the device's work)."""
+def graph_times(wall: float, caps, steps: int):
+    """``(capture s, first step s, replay ms a step)`` of a rollout's
+    ``wall`` seconds: ``caps`` from ``capture_seconds`` (each graph's
+    warm-up and capture; a graphed rollout's first step is the warm-up).
+    Without graphs the replay column is the eager step."""
+    cap = sum(c for _, c in caps)
+    first = sum(w for w, _ in caps)
+    if not caps:
+        return 0.0, 0.0, wall / steps * 1e3
+    return cap, first, (wall - cap - first) / (steps - 1) * 1e3
+
+
+def profile_steps(label, run, steps: int, whole_ms: float, replay_ms: float,
+                  card: str, counted: dict):
+    """Device time by kernel over ``run()`` (a rollout of ``steps``
+    steps), from torch.profiler's CUDA activity, and the device's idle
+    share against the whole call's ms per step (``whole_ms``, the capture
+    included) and the replays' (``replay_ms``) of the same rollout
+    unprofiled (the profiler slows the host's launches, not the device's
+    work).  ``counted``: ``{kernel symbol: wrapper counter}``; each
+    kernel's launches in the device trace must equal ``steps`` and its
+    wrapper's count, so that the counts a replay adds are measured once on
+    the device."""
     from torch.profiler import ProfilerActivity, profile
 
+    from multi_purpose_mpc_tpu_torch.utils import kernels
+    from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    before = kernels.launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            capture_seconds() as caps:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3 / steps
+        prof_ms = graph_times(time.perf_counter() - t0, caps, steps)[2]
+    after = kernels.launch_counts()
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    traced = {sym: sum(e.count for e in events if sym in e.key)
+              for sym in counted}
+    wrapped = {sym: after[c] - before[c] for sym, c in counted.items()}
+    if any(traced[k] != steps or wrapped[k] != steps for k in counted):
+        raise AssertionError(f"[profile] {label}: kernels in the device "
+                             f"trace {traced}, counted by the wrappers "
+                             f"{wrapped}, for {steps} steps")
     busy = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:6]
     k2 = sum(dev_us(e) for e in events if "corridor_select" in e.key)
-    print(f"[profile] {label}, ms per step (torch.profiler, {card}): wall "
-          f"{wall:.3f} unprofiled ({prof_wall:.3f} profiled), device busy "
-          f"{busy:.3f}, idle "
-          f"{100.0 * (1.0 - busy / wall):.1f} %, K2 {k2 / 1e3 / steps:.4f}; "
+    print(f"[profile] {label}, ms per step (torch.profiler, {card}): whole "
+          f"call {whole_ms:.3f} unprofiled, replays {replay_ms:.3f} "
+          f"({prof_ms:.3f} profiled), device busy {busy:.3f}, idle "
+          f"{100.0 * (1.0 - busy / whole_ms):.1f} % of the whole call, "
+          f"{100.0 * (1.0 - busy / replay_ms):.1f} % of the replays; "
+          f"launches in the device trace {traced} ({steps} steps, equal to "
+          f"the wrappers' counts); K2 {k2 / 1e3 / steps:.4f}; "
           f"top: " + "; ".join(
               f"{e.key[:48]} {dev_us(e) / 1e3 / steps:.3f}" for e in top),
           flush=True)
@@ -501,6 +553,7 @@ API_LAP_STEPS = 300
 API_LIDAR_STEPS = 60
 API_CHECKED_STEPS = 5  # steps whose corridor is held against the plain path
 API_PROFILE_STEPS = 20
+API_GRAPH_STEPS = 20  # phase 23: the lap's graphed controls held to eager
 API_MAX_EY = 0.25
 API_ACCEPT = 0.9
 
@@ -529,37 +582,49 @@ def plain_corridor(grid, path, wp_id, N, min_width, sm, n_samples, S):
     return corridor_select_plain(blk, S, sm)
 
 
+def api_world(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles):
+    """tests/test_api.py's fixture on the card: ``(map, path, car, mpc)``."""
+    from multi_purpose_mpc_tpu_torch import api
+
+    m = api.Map(map_cfg.file_path, map_cfg.origin, map_cfg.resolution,
+                device="cuda")
+    rp = api.ReferencePath(m, path_cfg.wp_x, path_cfg.wp_y,
+                           path_cfg.resolution, path_cfg.smoothing_distance,
+                           path_cfg.max_width, path_cfg.circular)
+    m.add_obstacles([api.Obstacle(*o) for o in obstacles])
+    car = api.BicycleModel(rp, model.length, model.width, model.Ts)
+    kmax = np.tan(cfg.delta_max) / car.length
+    ctrl = api.MPC(car, cfg.N, np.diag(cfg.Q), np.diag(cfg.R),
+                   np.diag(cfg.QN),
+                   {"xmin": np.full(3, -np.inf), "xmax": np.full(3, np.inf)},
+                   {"umin": np.array([cfg.v_min, -kmax]),
+                    "umax": np.array([cfg.v_max, kmax])}, cfg.ay_max)
+    rp.compute_speed_profile(speed_cfg)
+    return m, rp, car, ctrl
+
+
 def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
               reset_counts, read_counts, expect):
     """Phase 21 (module docstring): the two-call loop through the object
     API, on the static map and with the LiDAR writing into it."""
     from multi_purpose_mpc_tpu_torch import api
 
-    def world():
-        m = api.Map(map_cfg.file_path, map_cfg.origin, map_cfg.resolution,
-                    device="cuda")
-        rp = api.ReferencePath(m, path_cfg.wp_x, path_cfg.wp_y,
-                               path_cfg.resolution, path_cfg.smoothing_distance,
-                               path_cfg.max_width, path_cfg.circular)
-        m.add_obstacles([api.Obstacle(*o) for o in obstacles])
-        car = api.BicycleModel(rp, model.length, model.width, model.Ts)
-        kmax = np.tan(cfg.delta_max) / car.length
-        ctrl = api.MPC(car, cfg.N, np.diag(cfg.Q), np.diag(cfg.R),
-                       np.diag(cfg.QN),
-                       {"xmin": np.full(3, -np.inf), "xmax": np.full(3, np.inf)},
-                       {"umin": np.array([cfg.v_min, -kmax]),
-                        "umax": np.array([cfg.v_max, kmax])}, cfg.ay_max)
-        rp.compute_speed_profile(speed_cfg)
-        return m, rp, car, ctrl
+    world = lambda: api_world(map_cfg, path_cfg, model, cfg, speed_cfg,
+                              obstacles)
 
     # the step's ControlOutput, for its corridor: a spy around the API's
-    # mpc_step that changes nothing
-    seen = []
+    # mpc_step that changes nothing.  On the card get_control replays a
+    # captured graph, and the capture's ControlOutput holds the graph's own
+    # outputs, which every replay rewrites with that step's values; a call
+    # that captures runs its step eagerly first (the warm-up), and that
+    # run's output is the call's
+    seen, captured = [], []
     step_fn = api.mpc_step
 
     def spy(*args, **kw):
         out = step_fn(*args, **kw)
-        seen.append(out)
+        (captured if torch.cuda.is_current_stream_capturing()
+         else seen)[:] = [out]
         return out
 
     api.mpc_step = spy
@@ -587,6 +652,7 @@ def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
                     torch.cuda.synchronize()
                     times["scan + update_map"].append(time.perf_counter() - t0)
                 reset_counts()
+                seen.clear()
                 t0 = time.perf_counter()
                 u = ctrl.get_control()
                 times["get_control"].append(time.perf_counter() - t0)
@@ -594,7 +660,7 @@ def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
                 if counts != expect(extract_occ=1, corridor_select=1,
                                     admm_structured=1):
                     bad.append((k, counts))
-                out = seen.pop()
+                out = (seen or captured)[-1]
                 if k < API_CHECKED_STEPS:
                     ref = plain_corridor(m.grid, rp.path_data,
                                          out.state.wp_id + 1, N, 2.0 * sm, sm,
@@ -868,13 +934,145 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
         lambda b: corridor_select_cuda(b, S, sm), (s["blk"],),
         lambda a, i: (torch.roll(a[0], i % 2, 0),), steps=64, repeats=3)
     print(f"[profiling] timeit of one static step (B={B}, first step of "
-          f"phase 5's fleet, CUDA events, median of 10): {step_s * 1e3:.4f} "
+          f"phase 5's fleet, a one-step rollout, which captures nothing; "
+          f"CUDA events, median of 10): {step_s * 1e3:.4f} "
           f"ms; chip_smoke.cuda_ms of the same: {step_ev:.4f} ms; phase 5's "
-          f"wall per step over {STEPS} steps: {s['main_ms']:.4f} ms.  "
+          f"whole call per step over {STEPS} steps: {s['main_ms']:.4f} ms.  "
           f"scan_marginal_cost of K2 (B={B}, 64 iterations on rolled "
           f"blocks, best of 3): {k2_s * 1e3:.5f} ms, beside [K2 scaling]'s "
           f"device time {s['k2_ms']:.5f} ms; on {card}", flush=True)
     return total
+
+
+def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
+    """Phase 23 (module docstring): each path captured and replayed, then
+    in its eager form (``graphs.disable_capture``), bit for bit and launch
+    for launch; eager, replay and capture times and peak memory.
+
+    ``runs``: ``(label, run, lanes, steps)``, ``run()`` a rollout;
+    ``api_ctx``: :func:`api_world`'s arguments; ``nccl_runs(mesh)``: the
+    runs to make over an NCCL group at world size 1."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_dist_worker import free_port
+
+    from multi_purpose_mpc_tpu_torch.parallel.mesh import (global_fleet_mesh,
+                                                           init_distributed)
+    from multi_purpose_mpc_tpu_torch.utils import graphs
+    from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds
+    from multi_purpose_mpc_tpu_torch.utils.tree import leaves
+
+    def forms(run):
+        """Each form's result, wall, launches, captures and peak memory
+        above what was allocated before the call."""
+        out = {}
+        for form in ("graph", "eager"):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            with (contextlib.nullcontext() if form == "graph"
+                  else graphs.disable_capture()), capture_seconds() as caps:
+                res = run()
+                torch.cuda.synchronize()
+            out[form] = dict(res=res, wall=time.perf_counter() - t0,
+                             launches=read_counts(), caps=list(caps),
+                             graphs=len(caps),
+                             peak=(torch.cuda.max_memory_allocated() - held)
+                             / 2**30,
+                             cached=(torch.cuda.memory_reserved() - reserved)
+                             / 2**30)
+        return out["graph"], out["eager"]
+
+    def compare(label, run, lanes, steps):
+        g, e = forms(run)
+        lg, le = leaves(g["res"]), leaves(e["res"])
+        bad = [i for i, (a, b) in enumerate(zip(lg, le)) if not same_bits(a, b)]
+        if g["graphs"] == 0 or e["graphs"] or len(lg) != len(le) or bad:
+            raise AssertionError(f"[graphs] {label}: {g['graphs']} graphs "
+                                 f"captured, {e['graphs']} eager; leaves "
+                                 f"that differ: {bad}")
+        if g["launches"] != e["launches"]:
+            raise AssertionError(f"[graphs] {label}: launches {g['launches']}"
+                                 f" graphed, {e['launches']} eager")
+        eager_ms = e["wall"] / steps * 1e3
+        cap_s, first_s, replay_ms = graph_times(g["wall"], g["caps"], steps)
+        per_step = {k: v / steps for k, v in g["launches"].items() if v}
+        print(f"[graphs] {label}, B={lanes} x {steps} steps: {len(lg)} "
+              f"leaves (logs, final state, maps) bitwise equal to the eager "
+              f"form's; launches a step {per_step} in both; whole call "
+              f"{g['wall'] / steps * 1e3:.4f} ms a step graphed "
+              f"({lanes * steps / g['wall']:.1f} car-steps/s), "
+              f"{eager_ms:.4f} eager ({lanes * steps / e['wall']:.1f} "
+              f"car-steps/s); graphed: capture {cap_s:.3f} s "
+              f"({g['graphs']} graphs), first step (the warm-up) "
+              f"{first_s * 1e3:.3f} ms, replays {replay_ms:.4f} ms a step "
+              f"({lanes * 1e3 / replay_ms:.1f} car-steps/s); peak memory "
+              f"above the held {e['peak']:.3f} GiB eager, {g['peak']:.3f} "
+              f"GiB graph; the allocator's reserve grew {e['cached']:.3f} "
+              f"GiB eager, {g['cached']:.3f} GiB graph on {card}",
+              flush=True)
+
+    def api_loop(steps, lidar):
+        """The two-call loop (with ``scan`` + ``update_map`` first when
+        ``lidar``): each step's control and measurements, and the ms of
+        ``get_control`` and of the scan."""
+        from multi_purpose_mpc_tpu_torch import api
+
+        m, rp, car, ctrl = api_world(*api_ctx)
+        sensor = api.LidarModel(FoV=180, range=2.0, resolution=2)
+        out, ms = [], {"get_control": [], "scan": []}
+        for _ in range(steps):
+            if lidar:
+                t0 = time.perf_counter()
+                meas = sensor.scan(car, m)
+                ms["scan"].append((time.perf_counter() - t0) * 1e3)
+                sensor.update_map(car, m)
+            t0 = time.perf_counter()
+            u = ctrl.get_control()
+            ms["get_control"].append((time.perf_counter() - t0) * 1e3)
+            out.append(np.concatenate([u, meas.ravel()]) if lidar else u)
+            car.drive(u)
+            if car.s >= rp.length:
+                break
+        return np.stack(out), ms
+
+    for label, run, lanes, steps in runs:
+        compare(label, run, lanes, steps)
+    pct = lambda a, q: float(np.percentile(a, q))
+    for label, steps, lidar in (("API lap", API_LAP_STEPS, False),
+                                ("API LiDAR loop", API_LIDAR_STEPS, True)):
+        with graphs.disable_capture():
+            eager, eager_ms = api_loop(steps, lidar)
+        graph, graph_ms = api_loop(steps, lidar)
+        n = min(len(graph), len(eager))
+        eq = np.all(graph[:n] == eager[:n], 1)
+        same = n if eq.all() else int(np.argmin(eq))
+        print(f"[graphs] {label}: {len(graph)} steps; controls"
+              f"{' and measurements' if lidar else ''} bitwise equal to the "
+              f"eager steps' on the first {same}; ms a step median / p99, "
+              f"eager then replay (the first call, the step run eagerly as "
+              f"the warm-up + the capture, apart): "
+              + "; ".join(
+                  f"{k} {pct(eager_ms[k], 50):.3f} / {pct(eager_ms[k], 99):.3f}"
+                  f", {pct(v[1:], 50):.3f} / {pct(v[1:], 99):.3f} (first "
+                  f"{v[0]:.1f})" for k, v in graph_ms.items() if v)
+              + f" on {card}", flush=True)
+        if len(graph) != len(eager) or same != n or n < API_GRAPH_STEPS:
+            raise AssertionError(f"[graphs] {label}: graphed steps differ "
+                                 "from the eager ones")
+    if not init_distributed(f"localhost:{free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("init_distributed returned False")
+    try:
+        # set-up: NCCL builds its communicator at the group's first
+        # collective, which would otherwise fall in the first graphed call
+        dist.all_reduce(torch.zeros(1, device="cuda"))
+        for label, run, lanes, steps in nccl_runs(global_fleet_mesh()):
+            compare(f"NCCL at world size 1, {label}", run, lanes, steps)
+    finally:
+        dist.destroy_process_group()
 
 
 def main():
@@ -915,6 +1113,7 @@ def main():
     from multi_purpose_mpc_tpu_torch.utils import kernels
     from multi_purpose_mpc_tpu_torch.utils.maps import (
         add_obstacles_host, load_grid_map)
+    from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds
 
     # ---- phase 2: build ----
     names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ",
@@ -1118,10 +1317,12 @@ def main():
     # ---- phase 5: main path ----
     reset_counts()
     t0 = time.perf_counter()
-    res = simulate_fleet(grid, path, cfg, model, SimConfig(max_steps=STEPS),
-                         fleet, table=table)
-    torch.cuda.synchronize()
+    with capture_seconds() as caps:
+        res = simulate_fleet(grid, path, cfg, model,
+                             SimConfig(max_steps=STEPS), fleet, table=table)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    cap_s, first_s, replay_ms = graph_times(dt, caps, STEPS)
     launches = read_counts()
     print(f"[main] simulate_fleet B={B} x {STEPS} steps: launches {launches}",
           flush=True)
@@ -1130,12 +1331,17 @@ def main():
     static_log = res.log
     main_ms = dt / STEPS * 1e3
     h = health(res.log, res.final_state, path, model, STEPS)
-    print(f"[main] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
-          f"{fmt_health(h)} on {card}", flush=True)
+    print(f"[main] {B * STEPS / dt:.1f} car-steps/s, the whole call ({dt:.3f}"
+          f" s wall: capture {cap_s:.3f} s, first step {first_s * 1e3:.3f} "
+          f"ms, replays {replay_ms:.4f} ms a step, "
+          f"{B * 1e3 / replay_ms:.1f} car-steps/s), {fmt_health(h)} on "
+          f"{card}", flush=True)
     check_health(h, "main")
     profile_steps(f"static grid B={B}", lambda: simulate_fleet(
         grid, path, cfg, model, SimConfig(max_steps=10), fleet, table=table),
-        10, dt / STEPS * 1e3, card)
+        10, main_ms, replay_ms, card,
+        {"admm_fused_kernel": "admm_fused",
+         "corridor_select_kernel": "corridor_select"})
 
     # ---- phase 6: single car ----
     t0 = time.perf_counter()
@@ -1748,10 +1954,12 @@ def main():
     # the CR fleet: the main path with the CR stage solver
     reset_counts()
     t0 = time.perf_counter()
-    cr_res = simulate_fleet(grid, path, cfg_cr, model,
-                            SimConfig(max_steps=STEPS), fleet, table=table)
-    torch.cuda.synchronize()
+    with capture_seconds() as caps:
+        cr_res = simulate_fleet(grid, path, cfg_cr, model,
+                                SimConfig(max_steps=STEPS), fleet, table=table)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    cap_s, first_s, cr_replay_ms = graph_times(dt, caps, STEPS)
     cr_launches = read_counts()
     print(f"[cr fleet] simulate_fleet stage_solver=cr, static grid, B={B} x "
           f"{STEPS} steps: launches {cr_launches}", flush=True)
@@ -1759,14 +1967,19 @@ def main():
         raise AssertionError(f"CR fleet launches {cr_launches}")
     h_cr = health(cr_res.log, cr_res.final_state, path, model, STEPS)
     h_s = health(static_log, res.final_state, path, model, STEPS)
-    print(f"[cr fleet] {B * STEPS / dt:.1f} car-steps/s ({dt:.3f} s wall), "
+    print(f"[cr fleet] {B * STEPS / dt:.1f} car-steps/s, the whole call "
+          f"({dt:.3f} s wall: capture {cap_s:.3f} s, first step "
+          f"{first_s * 1e3:.3f} ms, replays {cr_replay_ms:.4f} ms a step, "
+          f"{B * 1e3 / cr_replay_ms:.1f} car-steps/s), "
           f"{fmt_health(h_cr)}; Schur fleet (phase 5) accept "
           f"{h_s['accept']:.4f}, solver-failure {h_s['solver_fail']:.5f} on "
           f"{card}", flush=True)
     check_health(h_cr, "CR fleet")
     profile_steps(f"static grid, CR, B={B}", lambda: simulate_fleet(
         grid, path, cfg_cr, model, SimConfig(max_steps=10), fleet,
-        table=table), 10, dt / STEPS * 1e3, card)
+        table=table), 10, dt / STEPS * 1e3, cr_replay_ms, card,
+        {"admm_fused_kernel": "admm_fused_cr",
+         "corridor_select_kernel": "corridor_select"})
     del cr_res
 
     # the CR sweep: per-lane weights reach K3-CR
@@ -1877,6 +2090,59 @@ def main():
         cells=cells, free=free, fleet16=fleet16, dyn_sim=dyn_sim,
         disc_packed=disc_packed, blk=blk, k2_ms=k2_ms), card, reset_counts,
         read_counts, expect)
+
+    # ---- phase 23: every path's graph against its eager form ----
+    from multi_purpose_mpc_tpu_torch.parallel.fleet import (
+        simulate_fleet_sharded, simulate_lidar_fleet_sharded)
+
+    def nccl_runs(mesh):
+        return [
+            ("simulate_fleet_sharded, static grid", lambda: simulate_fleet_sharded(
+                mesh, grid, path, cfg, model, SimConfig(max_steps=STEPS),
+                fleet), B, STEPS),
+            ("simulate_lidar_fleet_sharded, shared grid, clear_free (the "
+             "mask all-reduce captured)", lambda: simulate_lidar_fleet_sharded(
+                 mesh, grid, free, path, cfg, model, dyn_sim, lidar, fleet16,
+                 shared_grid=True, clear_free=True, **lidar_kw),
+             LIDAR_B, STEPS)]
+
+    graphs_phase([
+        ("static grid, Schur", lambda: simulate_fleet(
+            grid, path, cfg, model, SimConfig(max_steps=STEPS), fleet,
+            table=table), B, STEPS),
+        ("static grid, CR", lambda: simulate_fleet(
+            grid, path, cfg_cr, model, SimConfig(max_steps=STEPS), fleet,
+            table=table), B, STEPS),
+        ("dynamic grid", lambda: simulate_fleet(
+            grid, path, cfg, model, dyn_sim, fleet, table=scan), B, STEPS),
+        ("dynamic sweep", lambda: simulate_fleet(
+            grid, path, cfg, model, dyn_sim, fleet, table=scan,
+            weights=weights), B, STEPS),
+        ("escalation", lambda: simulate_fleet(
+            grid, path, esc_cfg, model, SimConfig(max_steps=ESC_STEPS), fleet,
+            table=table), B, ESC_STEPS),
+        (f"N = {N60}", lambda: simulate_fleet(
+            grid, path, cfg60, model, SimConfig(max_steps=N60_STEPS), fleet60,
+            table=table60), N60_FLEET_B, N60_STEPS),
+        ("Real_Track (table built inside)", lambda: simulate_fleet(
+            rt_grid, rt_path, rt_cfg, rt_model, SimConfig(max_steps=RT_STEPS),
+            rt_fleet), RT_BATCH, RT_STEPS),
+        ("LiDAR fleet, known = true (packed)", lambda: simulate_lidar_fleet(
+            grid, grid, path, cfg, model, dyn_sim, lidar, fleet, **lidar_kw),
+         B, STEPS),
+        *((f"discovery fleet, {wb}", lambda wb=wb: simulate_lidar_fleet(
+            grid, free, path, cfg, model, dyn_sim, lidar, fleet16,
+            writeback_backend=wb, **lidar_kw), LIDAR_B, STEPS)
+          for wb in ("packed", "fused")),
+        ("single-car lap", lambda: simulate_closed_loop(
+            grid, path, cfg, model, SimConfig(max_steps=250),
+            state0=init_car_state(path, cfg.N), table=table), 1, 250),
+        ("single-car LiDAR loop", lambda: simulate_lidar_loop(
+            grid, free, path, cfg, model, SimConfig(max_steps=LOOP_STEPS),
+            lidar, state0=init_car_state(path, cfg.N), table=scan), 1,
+         LOOP_STEPS),
+    ], (map_cfg, path_cfg, model, cfg, speed_cfg, obstacles), nccl_runs,
+        card, reset_counts, read_counts)
 
     def row(name, replaces, launches, err, ms, plain_ms, bnd, library_ms=None,
             source=None):

@@ -41,8 +41,10 @@ from multi_purpose_mpc_tpu_torch.ops import lidar as lidar_ops
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import init_solver_carry
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, build_reference_path
 from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
+from multi_purpose_mpc_tpu_torch.utils import graphs
 from multi_purpose_mpc_tpu_torch.utils import maps as maps_util
 from multi_purpose_mpc_tpu_torch.utils import viz
+from multi_purpose_mpc_tpu_torch.utils.tree import leaves, rebuild, tree_map
 
 _F32 = torch.float32
 
@@ -427,6 +429,44 @@ class BicycleModel:
         viz.plot_car(ax or plt.gca(), x, y, psi, self.length, self.width)
 
 
+class _Graphed:
+    """``fn(*args)`` (trees of tensors) replayed as a CUDA graph on static
+    copies of ``args``: captured at the first call and again when an
+    argument's shape or dtype, or an object of ``key``, changes.  ``key``
+    names by identity everything else the step reads (the path, the
+    configs, the grid's geometry); the graph holds it while it lives, so
+    the tensors whose addresses the capture baked in stay alive.  A call
+    copies ``args`` into the copies, replays and returns the graph's own
+    outputs, which the next call rewrites; a call that captures returns
+    its warm-up's result, the step run eagerly.  ``prepare(*copies)``
+    runs once before each capture (set-up that must not run inside the
+    warm-up's sync check)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.key = self.copies = self.graph = None
+
+    def __call__(self, key, prepare, *args):
+        flat = leaves(args)
+        layout = [(x.shape, x.dtype) for x in flat]
+        if self.graph is None or layout != self.key[1] or len(key) != len(
+                self.key[0]) or any(a is not b for a, b in zip(key, self.key[0])):
+            self.graph = None  # frees the old graph's memory pool first
+            self.copies = [x.clone(memory_format=torch.contiguous_format)
+                           for x in flat]
+            static = rebuild(args, self.copies)
+            if prepare is not None:
+                prepare(*static)
+            step = lambda: self.fn(*static)
+            self.graph = graphs.StepGraph(step, warmup=step)
+            self.key = (tuple(key), layout)
+            return self.graph.first
+        for buf, x in zip(self.copies, flat):
+            buf.copy_(x)
+        self.graph.replay()
+        return self.graph.out
+
+
 def _diag(M, n):
     """A cost diagonal from ndarray / scipy-sparse-like input."""
     M = np.asarray(M.todense()) if hasattr(M, "todense") else np.asarray(M)
@@ -468,22 +508,47 @@ class MPC:
         self.current_prediction = None
         self.current_control = np.zeros(self.nu * N)
         self.infeasibility_counter = 0
+        self._graphed = _Graphed(self._control_step)
+
+    def _control_step(self, state: CarState, grid: grid_ops.GridMap):
+        """:func:`~.mpc.mpc_step` and the predicted positions: ``(new
+        state, flat)``, ``flat`` everything the host reads, for one
+        device-to-host copy."""
+        rp = self.model.reference_path
+        out = mpc_step(state, rp.path_data, grid, self.config,
+                       self.model._model_cfg)
+        st = out.state
+        xp, yp = predict_world_positions(rp.path_data, st.wp_id, out.X_pred)
+        return st, torch.cat([out.v, out.delta, st.failed.to(_F32),
+                              st.infeasibility_count.to(_F32), st.u_seq[0],
+                              xp[0], yp[0]])
 
     def get_control(self):
         """One control step; returns np.array([v, delta])
         (reference: MPC.py:161-222).  Raises once the controller has
-        failed (N - 1 consecutive infeasible QPs)."""
+        failed (N - 1 consecutive infeasible QPs).  On the card the step
+        replays a CUDA graph (the counterpart of the JAX API's jitted
+        step), captured at the first call and again once the path (as
+        ``compute_speed_profile`` replaces it), a config or the grid's
+        geometry is replaced; the one device-to-host copy stays outside
+        it."""
         rp = self.model.reference_path
-        out = mpc_step(self.model._state, rp.path_data, rp.map.grid,
-                       self.config, self.model._model_cfg)
-        st = out.state
+        grid = rp.map.grid
+        if graphs.should_capture(grid.device):
+            cfg = self.config
+            # the corridor's tables (setup, cached per path and geometry)
+            # are built before the capture's warm-up and its sync check
+            prepare = lambda _, g: cons.corridor_tables(
+                g, rp.path_data, cfg.N, cfg.n_scan_samples, cfg.max_segments)
+            key = (rp.path_data, cfg, self.model._model_cfg, grid.origin,
+                   grid.resolution)
+            st, flat = self._graphed(key, prepare, self.model._state, grid)
+            st = tree_map(torch.clone, st)  # the next replay rewrites st
+        else:
+            st, flat = self._control_step(self.model._state, grid)
         self.model._state = st
-        xp, yp = predict_world_positions(rp.path_data, st.wp_id, out.X_pred)
-        # everything the host needs, in one device-to-host copy
         N = self.N
-        flat = torch.cat([out.v, out.delta, st.failed.to(_F32),
-                          st.infeasibility_count.to(_F32), st.u_seq[0],
-                          xp[0], yp[0]]).cpu().numpy()
+        flat = flat.cpu().numpy()
         v, delta, failed, count = flat[:4]
         useq = flat[4:4 + 2 * N].reshape(N, 2)
         self.infeasibility_counter = int(count)
@@ -526,6 +591,7 @@ class LidarModel:
         self.measurements = np.stack(
             [angles, np.full_like(angles, range)], axis=0)
         self._last_scan = None
+        self._graphed = _Graphed(self._scan_step)
 
     @staticmethod
     def _pose(car, device):
@@ -537,14 +603,27 @@ class LidarModel:
         return tuple(torch.tensor(float(getattr(car, f)), dtype=_F32,
                                   device=device) for f in ("x", "y", "psi"))
 
+    def _scan_step(self, grid, x, y, psi):
+        out = lidar_ops.scan_rays(grid, x, y, psi, self.config,
+                                  conservative=self.conservative)
+        return out, lidar_ops.measurements(out)
+
     def scan(self, car, map: Map):
         """Update ``measurements`` from the car pose (lidar_model.py:37-112).
-        ``car``: a BicycleModel or anything with x / y / psi attributes."""
+        ``car``: a BicycleModel or anything with x / y / psi attributes.
+        On the card the scan replays a CUDA graph (the counterpart of the
+        JAX API's jitted scan), captured at the first call."""
         x, y, psi = self._pose(car, map.device)
-        out = lidar_ops.scan(map.grid, x, y, psi, self.config,
-                             conservative=self.conservative)
+        if self.conservative:
+            self.config.validate_for_grid(float(map.grid.resolution))
+        if graphs.should_capture(map.device):
+            out, meas = self._graphed((self.config, self.conservative), None,
+                                      map.grid, x, y, psi)
+            out = tree_map(torch.clone, out)  # the next replay rewrites it
+        else:
+            out, meas = self._scan_step(map.grid, x, y, psi)
         self._last_scan = out
-        self.measurements = lidar_ops.measurements(out).cpu().numpy()
+        self.measurements = meas.cpu().numpy()
         return self.measurements
 
     def update_map(self, car, map: Map, clear_free: bool = False) -> None:

@@ -19,6 +19,7 @@ lanes with K1 or K3.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -62,6 +63,16 @@ def weights_from_config(cfg: MPCConfig, device="cuda") -> WeightSet:
     return WeightSet(Q=f(cfg.Q), R=f(cfg.R), QN=f(cfg.QN))
 
 
+@functools.lru_cache(maxsize=None)
+def _const(vals: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(vals)`` on ``device``, made once per value and filled
+    on the device: a copy from host data would sync the host, which a step
+    captured in a CUDA graph must not (the cached tensor outlives the
+    graph).  Callers share it and never write to it."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in vals])
+
+
 class ControlOutput(NamedTuple):
     state: CarState  # updated controller-side state (wp_id, e_y, u_seq, flags)
     v: torch.Tensor  # (B,) speed command
@@ -85,7 +96,7 @@ def assemble_ltv_qp(cfg: MPCConfig, model: ModelConfig, e_y, e_psi,
     v_ref, kappa_ref, delta_s = horizon
     Bsz = v_ref.shape[0]
     dt, dev = v_ref.dtype, v_ref.device
-    vec = lambda vals: torch.tensor(vals, dtype=dt, device=dev)
+    vec = lambda vals: _const(tuple(vals), dt, dev)
     f, A, B = linearize(v_ref, kappa_ref, delta_s)
 
     ur = torch.stack([v_ref, kappa_ref], -1)  # (B, N, 2)
@@ -94,7 +105,8 @@ def assemble_ltv_qp(cfg: MPCConfig, model: ModelConfig, e_y, e_psi,
     uq = torch.einsum("bnij,bnj->bni", B, ur) - f
     beq = torch.cat([-x0[:, None], uq], 1)
 
-    base = weights_from_config(cfg, dev)
+    base = WeightSet(*(_const(tuple(w), torch.float32, dev)
+                       for w in (cfg.Q, cfg.R, cfg.QN)))
     w = base if weights is None else weights
     leaf = lambda a, b: (b if a is None else a).to(dt).reshape(-1, 1, b.shape[-1])
     Qd, QNd, Rd = leaf(w.Q, base.Q), leaf(w.QN, base.QN), leaf(w.R, base.R)

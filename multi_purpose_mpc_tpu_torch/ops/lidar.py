@@ -67,12 +67,13 @@ class LidarScan(NamedTuple):
 def linspace_f32(start: float, stop: float, n: int, device) -> torch.Tensor:
     """``jnp.linspace(start, stop, n, dtype=float32)``'s formula: ``start *
     (1 - t) + stop * t`` with ``t = i / (n - 1)``, ending exactly at
-    ``stop``."""
-    s = torch.tensor(start, dtype=_F32, device=device)
+    ``stop``.  The end points are filled on the device, with no copy from
+    the host (a step that scans runs under CUDA-graph capture)."""
+    s = torch.full((), start, dtype=_F32, device=device)
     if n == 1:
         return s[None]
     t = unit_linspace(n, device)
-    return s * (1 - t) + torch.tensor(stop, dtype=_F32, device=device) * t
+    return s * (1 - t) + torch.full((), stop, dtype=_F32, device=device) * t
 
 
 def beam_angles(cfg: LidarConfig, device="cuda") -> torch.Tensor:
@@ -118,10 +119,18 @@ def scan(grid: GridMap, x, y, psi, cfg: LidarConfig,
     (|n_x| + |n_y|) / 2 * resolution``, tested over the 3 x 3 neighbourhood
     of every sample (exact when the sample spacing is below one cell:
     :meth:`LidarConfig.validate_for_grid`)."""
-    x, y, psi = (torch.as_tensor(v, dtype=_F32, device=grid.device)
-                 for v in (x, y, psi))
     if conservative:
         cfg.validate_for_grid(float(grid.resolution))
+    return scan_rays(grid, x, y, psi, cfg, conservative)
+
+
+def scan_rays(grid: GridMap, x, y, psi, cfg: LidarConfig,
+              conservative: bool = False) -> LidarScan:
+    """:func:`scan` without its check of the sampling against the grid,
+    which reads the resolution back to the host: for a caller that checked
+    it before, as a scan captured in a CUDA graph must."""
+    x, y, psi = (torch.as_tensor(v, dtype=_F32, device=grid.device)
+                 for v in (x, y, psi))
     angles = beam_angles(cfg, grid.device)
     cx, cy = _sensor(grid, x, y)
     cxb, cyb = cx[..., None], cy[..., None]
@@ -459,7 +468,10 @@ def _point_mask(py, px, valid, h: int, w: int, shared: bool) -> torch.Tensor:
     if valid is not None:
         idx = torch.where(valid, idx, n)
     mask = torch.zeros(n + 1, dtype=torch.bool, device=py.device)
-    mask[idx.reshape(-1)] = True
+    # the value as a device tensor: ``mask[idx] = True`` copies a host
+    # scalar to the card, a sync a step captured in a CUDA graph must not do
+    mask.index_put_((idx.reshape(-1),),
+                    torch.ones((), dtype=torch.bool, device=py.device))
     return mask[:n].view((h, w) if shared else (B, h, w))
 
 

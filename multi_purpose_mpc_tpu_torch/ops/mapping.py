@@ -135,10 +135,14 @@ def _check(occ, dtype, hpx, hpy, hit, px, py, name):
                              f"got {t.dtype} on {t.device}")
 
 
-def _launch(name, occ, hpx, hpy, hit, px, py, rows):
+def _launch(name, occ, hpx, hpy, hit, px, py, rows, out=None):
     Bsz, _, W = occ.shape
     N, K = px.shape[1:]
-    new_occ = torch.empty_like(occ)
+    if out is None:
+        new_occ = torch.empty_like(occ)
+    else:
+        _check_out(out, occ)
+        new_occ = out
     vals = torch.empty((Bsz, N, K), dtype=torch.float32, device=occ.device)
     rc = _library(name)(occ.data_ptr(), hpx.data_ptr(), hpy.data_ptr(),
                         hit.data_ptr(), px.data_ptr(), py.data_ptr(),
@@ -149,44 +153,68 @@ def _launch(name, occ, hpx, hpy, hit, px, py, rows):
     return new_occ, vals
 
 
-def writeback_extract_cuda(occ, hpx, hpy, hit, px, py):
+def writeback_extract_cuda(occ, hpx, hpy, hit, px, py, out=None):
     """Launch K5 on the current stream; same outputs as
-    :func:`writeback_extract_plain`."""
+    :func:`writeback_extract_plain`.  ``out``: the buffer the new maps go
+    to (else a new tensor)."""
     _check(occ, torch.float32, hpx, hpy, hit, px, py, "writeback_extract_cuda")
-    out = _launch("writeback_extract", occ, hpx, hpy, hit, px, py,
-                  occ.shape[1])
+    res = _launch("writeback_extract", occ, hpx, hpy, hit, px, py,
+                  occ.shape[1], out)
     writeback_extract_cuda.launches += 1
-    return out
+    return res
 
 
 writeback_extract_cuda.launches = 0
 
 
-def writeback_extract_packed_cuda(occ_pk, hpx, hpy, hit, px, py):
+def writeback_extract_packed_cuda(occ_pk, hpx, hpy, hit, px, py, out=None):
     """Launch K6 on the current stream; same outputs as
-    :func:`writeback_extract_packed_plain`."""
+    :func:`writeback_extract_packed_plain`.  ``out`` as for K5."""
     _check(occ_pk, torch.int32, hpx, hpy, hit, px, py,
            "writeback_extract_packed_cuda")
-    out = _launch("writeback_extract_packed", occ_pk, hpx, hpy, hit, px, py,
-                  occ_pk.shape[1] * 32)
+    res = _launch("writeback_extract_packed", occ_pk, hpx, hpy, hit, px, py,
+                  occ_pk.shape[1] * 32, out)
     writeback_extract_packed_cuda.launches += 1
-    return out
+    return res
 
 
 writeback_extract_packed_cuda.launches = 0
 
 
-def writeback_extract(occ, hpx, hpy, hit, px, py):
+def _into(res, out):
+    """A plain version's ``(new_occ, vals)`` with the maps copied into
+    ``out`` when one is given."""
+    new_occ, vals = res
+    if out is None:
+        return new_occ, vals
+    _check_out(out, new_occ)
+    return out.copy_(new_occ), vals
+
+
+def _check_out(out, occ):
+    if out.shape != occ.shape or out.dtype != occ.dtype \
+            or out.device != occ.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {tuple(occ.shape)} "
+                         f"{occ.dtype} tensor on {occ.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if out.data_ptr() == occ.data_ptr():
+        raise ValueError("out must not be the input maps: the kernels write "
+                         "out of place")
+
+
+def writeback_extract(occ, hpx, hpy, hit, px, py, out=None):
     """Hit write-back + scanline extraction on float32 per-lane grids: the
-    plain version for CPU tensors, kernel K5 for CUDA tensors."""
+    plain version for CPU tensors, kernel K5 for CUDA tensors.  ``out``:
+    a buffer for the new maps (the rollout's other map buffer)."""
     if occ.device.type == "cpu":
-        return writeback_extract_plain(occ, hpx, hpy, hit, px, py)
-    return writeback_extract_cuda(occ, hpx, hpy, hit, px, py)
+        return _into(writeback_extract_plain(occ, hpx, hpy, hit, px, py), out)
+    return writeback_extract_cuda(occ, hpx, hpy, hit, px, py, out)
 
 
-def writeback_extract_packed(occ_pk, hpx, hpy, hit, px, py):
+def writeback_extract_packed(occ_pk, hpx, hpy, hit, px, py, out=None):
     """The same on bit-packed grids: the plain version for CPU tensors,
     kernel K6 for CUDA tensors."""
     if occ_pk.device.type == "cpu":
-        return writeback_extract_packed_plain(occ_pk, hpx, hpy, hit, px, py)
-    return writeback_extract_packed_cuda(occ_pk, hpx, hpy, hit, px, py)
+        return _into(writeback_extract_packed_plain(occ_pk, hpx, hpy, hit, px,
+                                                    py), out)
+    return writeback_extract_packed_cuda(occ_pk, hpx, hpy, hit, px, py, out)

@@ -1,7 +1,15 @@
 """Closed-loop rollouts (port of ``multi_purpose_mpc_tpu/simulation.py``).
 
-The JAX package's ``lax.scan`` over time becomes a Python loop of fleet
-steps; per-step logs are stacked into (T, B) tensors on the fleet's device.
+The JAX package compiles each rollout into one ``lax.scan``; here
+:func:`_rollout` writes the same loop in a graph-ready form: the carry
+(the fleet's :class:`CarState`, and the LiDAR fleet's maps) lives in two
+sets of static buffers, step ``t`` reads one set and writes the other, and
+writes its log row into preallocated (T, B) logs at a device-side step
+counter.  On the card the step is captured once per buffer set as a CUDA
+graph (:mod:`.utils.graphs`) and replayed ``sim.max_steps`` times with no
+Python between the steps; on the CPU, and for a rollout that all-reduces
+over a gloo group, the same form runs eagerly.  Logs, final states and
+kernel launches are the same either way, bit for bit.
 
 * static grid: free segments and the windowed horizon table are built once
   per rollout; every step goes through the table, kernel K2 and kernel K1;
@@ -20,6 +28,7 @@ steps; per-step logs are stacked into (T, B) tensors on the fleet's device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -50,6 +59,8 @@ from multi_purpose_mpc_tpu_torch.ops.lidar import (
 from multi_purpose_mpc_tpu_torch.ops.mapping import (
     pack_rows, unpack_rows, writeback_extract, writeback_extract_packed)
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
+from multi_purpose_mpc_tpu_torch.utils import graphs
+from multi_purpose_mpc_tpu_torch.utils.tree import leaves, rebuild
 
 
 class SimLog(NamedTuple):
@@ -115,24 +126,90 @@ def simulate_fleet(grid: GridMap, path: PathData, cfg: MPCConfig,
     if sim.static_grid:
         if table is None:
             table = static_horizon_table(grid, path, cfg, model)
-        step = lambda st: _post_control(
+        step = lambda st, _: _post_control(
             mpc_step_batched(st, path, cfg, model, table, weights=weights),
             path, model)
-        return _rollout(step, state0, sim.max_steps)
+        return SimResult(*_rollout(step, state0, sim.max_steps))
     if table is None:
         table = build_scanline_table(grid, path, cfg.n_scan_samples)
     return _simulate_fleet_dynamic(grid, path, cfg, model, sim, state0, table,
                                    weights)
 
 
-def _rollout(sim_step, state0: CarState, steps: int) -> SimResult:
-    """``steps`` applications of ``sim_step: state -> (state, log)``."""
-    state, logs = state0, []
-    for _ in range(steps):
-        state, log = sim_step(state)
-        logs.append(log)
-    return SimResult(final_state=state,
-                     log=SimLog(*(torch.stack(f) for f in zip(*logs))))
+def _rollout(sim_step, carry0, steps: int, group=None):
+    """``steps`` applications of ``sim_step(carry, dst) -> (carry, log)``
+    from ``carry0`` (a tree: a :class:`CarState`, or a tuple of it and
+    the maps); returns ``(final carry, logs)``, the logs a tree like the
+    step's (a :class:`SimLog`) with a leading time axis.
+
+    The carry lives in two sets of static buffers; step ``t`` reads set
+    ``t % 2`` and its result is copied into the other set, so a new leaf
+    that views an old one is never overwritten before it is read.
+    ``dst`` is the set being written, as a tree like the carry: a step
+    may write a leaf there itself (an ``out=`` buffer) and return that
+    tensor, which is then not copied.  A step keeps every leaf's shape
+    and dtype, as ``lax.scan``'s carry does.
+
+    Captured as CUDA graphs (one per buffer set, sharing a memory pool)
+    under :func:`~.utils.graphs.should_capture` of the carry's device and
+    ``group``: on the card unless ``group`` is a gloo group, whose
+    all-reduce goes through the host; eager otherwise.  The first step
+    runs eagerly as the graphs' warm-up and the other ``steps - 1``
+    replay them (a one-step rollout captures nothing)."""
+    if steps < 1:
+        raise ValueError(f"a rollout takes at least one step, got {steps}")
+    first = leaves(carry0)
+    dev = first[0].device
+    bufs = ([x.clone(memory_format=torch.contiguous_format) for x in first],
+            [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for x in first])
+    t = torch.zeros((), dtype=torch.int64, device=dev)
+    logs, log_like = [], []
+    graphed = steps > 1 and graphs.should_capture(dev, group)
+    # the logs outlive the warm-up's side stream: they are made on the
+    # caller's
+    logs_stream = (torch.cuda.stream(torch.cuda.current_stream(dev))
+                   if graphed else contextlib.nullcontext())
+
+    def step(parity: int):
+        src, dst = bufs[parity], bufs[1 - parity]
+        new, log = sim_step(rebuild(carry0, src), rebuild(carry0, dst))
+        if not logs:
+            log_like.append(log)
+            with logs_stream:
+                logs.extend(torch.empty((steps,) + tuple(f.shape),
+                                        dtype=f.dtype, device=f.device)
+                            for f in leaves(log))
+        for buf, row in zip(logs, leaves(log)):
+            buf.index_copy_(0, t, row.unsqueeze(0))
+        t.add_(1)
+        _copy_carry(leaves(new), dst)
+
+    if graphed:
+        g1 = graphs.StepGraph(lambda: step(1), warmup=lambda: step(0))
+        pair = (graphs.StepGraph(lambda: step(0), pool=g1.pool())
+                if steps > 2 else None, g1)
+        for i in range(1, steps):
+            pair[i % 2].replay()
+    else:
+        for i in range(steps):
+            step(i % 2)
+    return rebuild(carry0, bufs[steps % 2]), rebuild(log_like[0], logs)
+
+
+def _copy_carry(new, dst) -> None:
+    """Copy a step's new carry leaves into the buffer set ``dst``."""
+    if len(new) != len(dst):
+        raise ValueError(f"a step returned {len(new)} carry leaves for "
+                         f"{len(dst)}")
+    for n, d in zip(new, dst):
+        if n.shape != d.shape or n.dtype != d.dtype:
+            raise ValueError(
+                f"a step must keep its carry's shapes and dtypes: "
+                f"{tuple(d.shape)} {d.dtype} became {tuple(n.shape)} "
+                f"{n.dtype}")
+        if n is not d:
+            d.copy_(n)
 
 
 def _validate_weights(weights: Optional[WeightSet], state0: CarState) -> None:
@@ -160,9 +237,9 @@ def _simulate_fleet_dynamic(grid: GridMap, path: PathData, cfg: MPCConfig,
     from each step's extraction."""
     base = build_horizon_table(
         path, empty_segments(path.n_wp, cfg.max_segments, path.x.device), cfg)
-    step = lambda st: _sim_step_batched_gridded(st, path, grid.occ, cfg,
-                                                model, scan, base, weights)
-    return _rollout(step, state0, sim.max_steps)
+    step = lambda st, _: _sim_step_batched_gridded(st, path, grid.occ, cfg,
+                                                   model, scan, base, weights)
+    return SimResult(*_rollout(step, state0, sim.max_steps))
 
 
 def _locate_horizon(state: CarState, path: PathData, cfg: MPCConfig):
@@ -318,7 +395,9 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     passes it).  Every step pools the observation masks over the group
     (:func:`~.ops.lidar.pool_observation_masks`) before the one map update,
     so every rank's map stays the same; it needs ``shared_grid`` and the
-    ``dense`` write-back.
+    ``dense`` write-back.  Over NCCL the all-reduce is captured with the
+    step; a gloo group's rollout runs eagerly (gloo reduces through the
+    host, which a CUDA graph cannot hold).
 
     Returns ``(SimResult, final_known_occ)``: (B, H, W) per lane, or
     (H, W)."""
@@ -345,13 +424,12 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     H, W = known_grid.occ.shape[-2:]
     sm = model.safety_margin
 
-    def lane_stack(occ):
-        """The rollout's own contiguous map carry: per-lane maps copied
-        from a 2-D frame (an expanded view would alias every lane's map),
-        or a copy of the caller's stack or shared grid."""
-        if not shared_grid and occ.dim() == 2:
-            occ = occ.expand(B, -1, -1)
-        return occ.clone(memory_format=torch.contiguous_format)
+    def lanes(occ):
+        """The map carry: per-lane maps from a 2-D frame (the rollout
+        copies it into its own buffers), a (B, H, W) stack or the shared
+        grid as they are."""
+        return occ.expand(B, -1, -1) if not shared_grid and occ.dim() == 2 \
+            else occ
 
     def scans_of(st):
         return scan_fleet(true_grid, st.x, st.y, st.psi, lidar, cells=cells,
@@ -360,17 +438,17 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     if writeback_backend in ("fused", "packed"):
         packed = writeback_backend == "packed"
         fused = writeback_extract_packed if packed else writeback_extract
-        occ = known_grid.occ
-        carry = [lane_stack(pack_rows(occ)) if packed else lane_stack(occ)]
 
-        def step(st):
+        def step(carry, dst):
+            # the kernel writes the new maps straight into the other
+            # buffer set: two maps ping-pong, none is copied
+            st, occ = carry
             located, idx = _locate_horizon(st, path, cfg)
             h = horizon_tables(table, idx)
             scans = scans_of(st)
             hpx, hpy = hit_pixels(known_grid, scans, H, W)
-            carry[0], vals = fused(carry[0], hpx.contiguous(),
-                                   hpy.contiguous(), scans.hit.contiguous(),
-                                   h.px, h.py)
+            occ, vals = fused(occ, hpx.contiguous(), hpy.contiguous(),
+                              scans.hit.contiguous(), h.px, h.py, out=dst[1])
             segs = horizon_segments(vals, h, 2.0 * sm, cfg.max_segments)
             corridor, blk = _select_corridor_batched(base, located[0], segs,
                                                      cfg, sm)
@@ -378,35 +456,38 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
                 st, cfg, model, located, corridor,
                 solver_inputs_from_block(blk, cfg.max_segments),
                 weights=weights)
-            return _post_control(out, path, model)
+            st, log = _post_control(out, path, model)
+            return (st, occ), log
 
-        res = _rollout(step, state0, sim.max_steps)
-        return res, unpack_rows(carry[0], H) if packed else carry[0]
+        occ = known_grid.occ
+        (st, occ), log = _rollout(
+            step, (state0, lanes(pack_rows(occ) if packed else occ)),
+            sim.max_steps)
+        return SimResult(st, log), unpack_rows(occ, H) if packed else occ
 
-    carry = [lane_stack(known_grid.occ)]
-
-    def step(st):
+    def step(carry, _):
+        st, occ = carry
         scans = scans_of(st)
         if group is not None:
             masks = fleet_observation_masks(known_grid, H, W, st.x, st.y,
                                             st.psi, scans, lidar,
                                             clear_free=clear_free, shared=True)
-            carry[0] = apply_observation_masks(
-                carry[0], *pool_observation_masks(*masks, group))
+            occ = apply_observation_masks(
+                occ, *pool_observation_masks(*masks, group))
         elif writeback_backend == "dense":
-            carry[0] = fleet_writeback(known_grid, carry[0], st.x, st.y,
-                                       st.psi, scans, lidar,
-                                       clear_free=clear_free,
-                                       shared=shared_grid)
+            occ = fleet_writeback(known_grid, occ, st.x, st.y, st.psi, scans,
+                                  lidar, clear_free=clear_free,
+                                  shared=shared_grid)
         else:
-            scatter_writeback_(known_grid, carry[0], st.x, st.y, st.psi,
-                               scans, clear_free=clear_free,
-                               shared=shared_grid)
-        return _sim_step_batched_gridded(st, path, carry[0], cfg, model,
-                                         table, base, weights)
+            scatter_writeback_(known_grid, occ, st.x, st.y, st.psi, scans,
+                               clear_free=clear_free, shared=shared_grid)
+        st, log = _sim_step_batched_gridded(st, path, occ, cfg, model, table,
+                                            base, weights)
+        return (st, occ), log
 
-    res = _rollout(step, state0, sim.max_steps)
-    return res, carry[0]
+    (st, occ), log = _rollout(step, (state0, lanes(known_grid.occ)),
+                              sim.max_steps, group=group)
+    return SimResult(st, log), occ
 
 
 def simulate_lidar_loop(true_grid: GridMap, known_grid: GridMap,

@@ -121,6 +121,22 @@ def launch_counters() -> dict:
                 mapping.writeback_extract_packed_cuda, "launches")}
 
 
+def launch_counts() -> dict:
+    """Every counter of :func:`launch_counters` as ``{name: count}``."""
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in launch_counters().items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``{name: n}`` to the wrappers' counters: a replayed CUDA graph
+    launches the kernels its capture recorded without running the
+    wrappers, so it adds the capture's counts once per replay
+    (:mod:`.graphs`).  ``n`` may be negative."""
+    for name, (fn, attr) in launch_counters().items():
+        if counts.get(name):
+            setattr(fn, attr, getattr(fn, attr) + counts[name])
+
+
 def ptxas_report(name: str) -> str:
     """ptxas's resource report (registers, stack, shared memory, spills)
     of ``csrc/<name>.cu`` compiled with the build flags."""

@@ -5,7 +5,11 @@
 * :func:`timeit` / :func:`time_stages` — median seconds per call, fenced
   by :func:`fence`; CUDA events on the card, ``perf_counter`` on the CPU;
 * :func:`scan_marginal_cost` — the marginal seconds per iteration of a
-  function inside one timed loop, less a trivial harness.
+  function inside one timed loop, less a trivial harness;
+* :func:`capture_seconds` — the warm-up and capture seconds of every
+  CUDA graph made inside a block (:func:`.graphs.capture_seconds`, which
+  each :class:`~.graphs.StepGraph` reports to), what the graphs cost
+  before their first replay.
 
 PyTorch returns from a CUDA call before the device has finished, so every
 time here is taken after a synchronise of the devices the result lives on.
@@ -21,6 +25,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from multi_purpose_mpc_tpu_torch.utils.graphs import capture_seconds  # noqa: F401
 from multi_purpose_mpc_tpu_torch.utils.tree import leaves
 
 

@@ -9,6 +9,7 @@ Tests marked ``cuda`` need an NVIDIA GPU and nvcc; they skip elsewhere
 the CPU-side contract of the wrappers and the build.
 """
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -36,7 +37,7 @@ from multi_purpose_mpc_tpu_torch.simulation import (_locate_horizon,
                                                     simulate_fleet,
                                                     simulate_lidar_fleet,
                                                     static_horizon_table)
-from multi_purpose_mpc_tpu_torch.utils import kernels
+from multi_purpose_mpc_tpu_torch.utils import graphs, kernels
 from multi_purpose_mpc_tpu_torch.utils.maps import (add_obstacles_host,
                                                     load_grid_map)
 
@@ -746,3 +747,164 @@ def test_gloo_pools_cuda_masks_of_two_ranks_as_one_or(cuda_sc, tmp_path):
         assert torch.equal(got["hitmask"], hm.cpu())
         assert torch.equal(got["freemask"], fm.cpu())
         assert torch.equal(got["occ"], ref.cpu())
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: every rollout and the object API's control step replay a
+# captured graph on the card; the eager form (graphs.disable_capture) is
+# what they are held against, bit for bit, launch for launch.
+# ---------------------------------------------------------------------------
+
+def _graph_and_eager(run):
+    """``run()`` captured and replayed, then in its eager form; each with
+    the kernels' launch counts it added."""
+    out = []
+    for form in ("graph", "eager"):
+        before = kernels.launch_counts()
+        with (contextlib.nullcontext() if form == "graph"
+              else graphs.disable_capture()):
+            res = run()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        out.append((res, {k: after[k] - before[k] for k in after}))
+    return out
+
+
+def _assert_same_tree(a, b):
+    from multi_purpose_mpc_tpu_torch.utils.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    assert len(la) == len(lb)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        assert (_same_bits(x, y) if x.dtype == torch.float32
+                else torch.equal(x, y)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_kind", ["static", "dynamic"])
+def test_fleet_graph_equals_eager(cuda_sc, grid_kind):
+    """B = 256 x 5 steps: logs and final state bitwise, the same launches
+    (K2 + K1, and K4 on the dynamic grid, once a step)."""
+    sc, T = cuda_sc, 5
+    sim = SimConfig(max_steps=T, static_grid=grid_kind == "static")
+    table = sc["table"] if grid_kind == "static" else None
+    (g, ng), (e, ne) = _graph_and_eager(lambda: simulate_fleet(
+        sc["grid"], sc["path"], sc["cfg"], sc["model"], sim, sc["fleet"],
+        table=table))
+    _assert_same_tree(g, e)
+    assert ng == ne
+    assert ng["admm_fused"] == ng["corridor_select"] == T
+    assert ng["extract_occ"] == (0 if grid_kind == "static" else T)
+    assert bool(g.log.ok.float().mean() > 0.9)
+
+
+@pytest.mark.cuda
+def test_packed_lidar_fleet_graph_equals_eager(cuda_sc):
+    """The discovery fleet (cells scan, K6 ping-ponging two map buffers):
+    logs, final state and maps bitwise, K6 = K2 = K1 once a step."""
+    sc, T = cuda_sc, 4
+    free = dataclasses.replace(sc["grid"], occ=torch.ones_like(sc["grid"].occ))
+    lidar = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=192)
+    (g, ng), (e, ne) = _graph_and_eager(lambda: simulate_lidar_fleet(
+        sc["grid"], free, sc["path"], sc["cfg"], sc["model"],
+        SimConfig(max_steps=T, static_grid=False), lidar, sc["fleet"]))
+    _assert_same_tree(g, e)
+    assert ng == ne
+    assert ng["writeback_extract_packed"] == ng["corridor_select"] == T
+    assert bool((g[1] < 0.5).sum() > 0)  # the scans found cells
+
+
+def _api_world(device):
+    """The object API on the Sim_Track preset: map, path, car and
+    controller, as the reference's simulation.py builds them."""
+    from multi_purpose_mpc_tpu_torch import api
+
+    map_cfg, path_cfg, model, cfg, speed_cfg, obstacles = sim_track_preset(ASSETS)
+    m = api.Map(map_cfg.file_path, map_cfg.origin, map_cfg.resolution,
+                device=device)
+    rp = api.ReferencePath(m, path_cfg.wp_x, path_cfg.wp_y,
+                           path_cfg.resolution, path_cfg.smoothing_distance,
+                           path_cfg.max_width, path_cfg.circular)
+    m.add_obstacles([api.Obstacle(*o) for o in obstacles])
+    car = api.BicycleModel(rp, model.length, model.width, model.Ts)
+    kmax = np.tan(cfg.delta_max) / car.length
+    ctrl = api.MPC(car, cfg.N, np.diag(cfg.Q), np.diag(cfg.R),
+                   np.diag(cfg.QN),
+                   {"xmin": np.full(3, -np.inf), "xmax": np.full(3, np.inf)},
+                   {"umin": np.array([0.0, -kmax]),
+                    "umax": np.array([cfg.v_max, kmax])}, cfg.ay_max)
+    rp.compute_speed_profile(speed_cfg)
+    return m, rp, car, ctrl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lidar", [False, True])
+def test_get_control_graph_equals_eager(cuda_device, lidar):
+    """20 steps of the API lap (with ``LidarModel.scan`` + ``update_map``
+    before each control), graphed beside eager on their own cars: the same
+    controls and measurements bit for bit and K4 = K2 = K3 = 1 launch a
+    step on both."""
+    from multi_purpose_mpc_tpu_torch import api
+
+    def loop():
+        m, rp, car, ctrl = _api_world(cuda_device)
+        sensor = api.LidarModel(FoV=180, range=2.0, resolution=2)
+        us = []
+        for _ in range(20):
+            meas = sensor.scan(car, m).ravel() if lidar else np.zeros(0)
+            if lidar:
+                sensor.update_map(car, m)
+            us.append(np.concatenate([ctrl.get_control(), meas]))
+            car.drive(us[-1][:2])
+        return np.stack(us), car.state, m.grid.occ
+
+    (g, ng), (e, ne) = _graph_and_eager(loop)
+    assert np.array_equal(g[0], e[0]) and g[0][:, 0].min() > 0
+    _assert_same_tree(g[1:], e[1:])
+    assert ng == ne
+    assert ng["extract_occ"] == ng["corridor_select"] == \
+        ng["admm_structured"] == 20
+
+
+@pytest.mark.cuda
+def test_get_control_follows_a_new_speed_profile(cuda_device):
+    """Five steps of the API lap, then ``compute_speed_profile`` with
+    other limits (it replaces the path, whose corridor tables the first
+    graph read), then five more: every control and prediction bitwise
+    equal to the eager loop's, K4 = K2 = K3 = 1 launch a step."""
+
+    def loop():
+        m, rp, car, ctrl = _api_world(cuda_device)
+        out = []
+        for k in range(10):
+            if k == 5:
+                rp.compute_speed_profile({"a_min": -0.1, "a_max": 0.5,
+                                          "v_min": 0.0, "v_max": 0.6,
+                                          "ay_max": 4.0})
+            u = ctrl.get_control()
+            out.append(np.concatenate([u, *ctrl.current_prediction]))
+            car.drive(u)
+        return np.stack(out), car.state
+
+    (g, ng), (e, ne) = _graph_and_eager(loop)
+    assert np.array_equal(g[0], e[0]) and g[0][:, 0].min() > 0
+    _assert_same_tree(g[1], e[1])
+    assert ng == ne
+    assert ng["extract_occ"] == ng["corridor_select"] == \
+        ng["admm_structured"] == 10
+
+
+@pytest.mark.cuda
+def test_capture_of_a_syncing_step_raises(cuda_device):
+    """A step that reads a value back to the host cannot be captured: the
+    warm-up raises (sync debug mode), and no eager run takes its place."""
+    from multi_purpose_mpc_tpu_torch import simulation as tsim
+
+    carry = (torch.zeros(4, device=cuda_device),)
+    step = lambda c, _: ((c[0] + float(c[0].sum().item()),), (c[0],))
+    with pytest.raises(RuntimeError):
+        tsim._rollout(step, carry, 3)
+    with graphs.disable_capture():
+        final, log = tsim._rollout(step, carry, 3)
+    assert log[0].shape == (3, 4)

@@ -23,9 +23,11 @@ unsharded run's lanes bit for bit, that the shared map is the unsharded
 one, that ``gather_fleet`` gives the unsharded static fleet and that
 ``fleet_metrics`` under the mesh equals the unsharded values.  Prints a
 line per fleet with each rank's car-steps/s (its own sharded rollout,
-started together after a barrier and synchronised) beside rank 0's
-unsharded run of the whole fleet on its one card, and the card's name and
-power limit; exits non-zero on any mismatch.
+started together after a barrier and synchronised: the whole call, the
+CUDA-graph capture included; on the card the capture's seconds and the
+rate of the replays alone beside it) and rank 0's unsharded run of the
+whole fleet on its one card, and the card's name and power limit; exits
+non-zero on any mismatch.
 """
 
 import argparse
@@ -53,6 +55,7 @@ from multi_purpose_mpc_tpu_torch.parallel.mesh import (  # noqa: E402
 from multi_purpose_mpc_tpu_torch.simulation import (  # noqa: E402
     feasible_starts, init_fleet, simulate_fleet, simulate_lidar_fleet)
 from multi_purpose_mpc_tpu_torch.utils import kernels  # noqa: E402
+from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds  # noqa: E402
 from multi_purpose_mpc_tpu_torch.utils.maps import (  # noqa: E402
     add_obstacles_host, load_grid_map)
 from multi_purpose_mpc_tpu_torch.utils.tree import leaves, tree_map  # noqa: E402
@@ -77,14 +80,25 @@ def same(a, b, label):
 
 
 def timed(fn, cuda: bool, group):
-    if cuda:
-        torch.cuda.synchronize()
+    """``(fn(), seconds, capture seconds, replay seconds)``: the wall of
+    the call, the part of it its CUDA-graph captures took, and what is
+    left once the first step (the graphs' warm-up) is taken out too (on
+    the CPU 0 and the wall)."""
+    if not cuda:
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        return out, wall, 0.0, wall
+    torch.cuda.synchronize()
     dist.barrier(group=group)
     t0 = time.perf_counter()
-    out = fn()
-    if cuda:
+    with capture_seconds() as caps:
+        out = fn()
         torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    cap = sum(c for _, c in caps)
+    return out, wall, cap, wall - cap - sum(w for w, _ in caps)
 
 
 def main():
@@ -127,16 +141,30 @@ def main():
     lines = []
 
     def report(label, nb, secs, ref_secs):
-        rates = torch.tensor([nb // mesh.world_size * args.steps / secs],
+        """``secs`` / ``ref_secs``: :func:`timed`'s (wall, capture,
+        replays)."""
+        graphed = secs[1] > 0  # the rollout replayed graphs
+        steps = args.steps - graphed  # the replayed steps
+        lanes = nb // mesh.world_size
+        rates = torch.tensor([lanes * args.steps / secs[0], secs[1],
+                              lanes * steps / secs[2]],
                              dtype=torch.float64, device=dev)
         every = [torch.empty_like(rates) for _ in range(mesh.world_size)]
         dist.all_gather(every, rates, group=mesh.group)
+        ref = nb * args.steps / ref_secs[0]
+        ref_replay = nb * steps / ref_secs[2]
         lines.append(f"[sharded] {label}, B={nb} x {args.steps} steps over "
                      f"{mesh.world_size} ranks ({dist.get_backend()}): "
                      f"bitwise equal to one process's lanes; car-steps/s a "
-                     f"rank " + ", ".join(f"{float(r):.1f}" for r in every)
-                     + f", together {sum(float(r) for r in every):.1f}; "
-                     f"unsharded on one card {nb * args.steps / ref_secs:.1f}")
+                     f"rank, the whole call "
+                     + ", ".join(f"{float(r[0]):.1f}" for r in every)
+                     + f", together {sum(float(r[0]) for r in every):.1f}; "
+                     f"the replays alone "
+                     + ", ".join(f"{float(r[2]):.1f}" for r in every)
+                     + f"; capture s a rank "
+                     + ", ".join(f"{float(r[1]):.3f}" for r in every)
+                     + f"; unsharded on one card {ref:.1f} (replays "
+                     f"{ref_replay:.1f}, capture {ref_secs[1]:.3f} s)")
 
     simulate_fleet(grid, path, cfg, model, SimConfig(max_steps=1), fleet)
     for kw in ({}, dict(shared_grid=True, clear_free=True)):
@@ -145,9 +173,9 @@ def main():
                              lfleet, **kw)
 
     # the static fleet
-    ref, ref_secs = timed(lambda: simulate_fleet(
+    ref, *ref_secs = timed(lambda: simulate_fleet(
         grid, path, cfg, model, static_sim, fleet), cuda, mesh.group)
-    res, secs = timed(lambda: simulate_fleet_sharded(
+    res, *secs = timed(lambda: simulate_fleet_sharded(
         mesh, grid, path, cfg, model, static_sim, fleet), cuda, mesh.group)
     metrics = fleet_metrics(res.log, path.length, mesh)
     full = gather_fleet(res, mesh)
@@ -168,10 +196,10 @@ def main():
     for label, kw in (("per-lane discovery fleet", {}),
                       ("shared-grid fleet, clear_free",
                        dict(shared_grid=True, clear_free=True))):
-        (ref, ref_occ), ref_secs = timed(lambda: simulate_lidar_fleet(
+        (ref, ref_occ), *ref_secs = timed(lambda: simulate_lidar_fleet(
             grid, free, path, cfg, model, dyn_sim, lidar, lfleet, **kw), cuda,
             mesh.group)
-        (res, occ), secs = timed(lambda: simulate_lidar_fleet_sharded(
+        (res, occ), *secs = timed(lambda: simulate_lidar_fleet_sharded(
             mesh, grid, free, path, cfg, model, dyn_sim, lidar, lfleet, **kw),
             cuda, mesh.group)
         same(res.log, type(ref.log)(*(f[:, sl] for f in ref.log)),
