@@ -8,9 +8,11 @@ Real_Track, LiDAR in the loop, the reference-mirroring object API and the
 fleets sharded over torch.distributed ranks;
 N = 30, S = 8, K = 128, the production solver budget — through their
 public entry points, in phases.  On the card every rollout and the object
-API's control step replay CUDA graphs (``utils/graphs.py``), so phases
-5-22 run graphed and their walls include the capture; phase 23 holds
-each path's graph against its eager form.
+API's control step replay CUDA graphs (``utils/graphs.py``), cached per
+step, configuration and shapes: a call's first run captures, a repeated
+call with fresh inputs of the same shapes replays.  Phases 5-22 run
+graphed; phase 23 holds each path's first and repeated calls against
+the eager form.
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
 2. build: compiles the six CUDA kernels from
@@ -29,11 +31,15 @@ each path's graph against its eager form.
    U[:, 0] within 3e-3, floor within 1e-6, some floor > 0 in both; bitwise
    also at B = 1, at a ragged B = 33 and at N = 60 (B = 256); the kernel's
    time at B = 1, 128, 1024 and 4096 beside its bound ([K1 scaling]);
-5. main path: ``simulate_fleet`` at B = 4096 for 50 steps; every kernel's
-   launch count equals the step count; bench.py's fleet-health gates; the
-   rate of the whole call (the graphs' capture included) with that of the
-   replays beside it; a profiled 10-step rollout, whose device trace
-   holds each kernel once a step, as the wrappers' counters say;
+5. main path: ``simulate_fleet`` at B = 4096 for 50 steps, then again
+   on fresh inputs of the same shapes (other starts, a speed profile
+   capped at 0.8 m/s, one more obstacle, so another table): the repeated
+   call replays the first call's cached graphs; in each every kernel's
+   launch count equals the step count and bench.py's fleet-health gates
+   hold; the repeated call's rate is the headline, the first call's
+   (capture included) and its replays' beside it; a profiled repeated
+   10-step rollout, whose device trace holds each kernel once a step, as
+   the wrappers' counters say;
 6. single car: ``simulate_closed_loop`` completes the lap within 250 steps
    with accept rate >= 0.9;
 7. K4 (scanline extraction) vs its plain version, bitwise: the (4096, 30,
@@ -86,8 +92,9 @@ each path's graph against its eager form.
     of the lanes both accept, median <= 2e-4, max <= 1e-1; see CR_*
     below); ``[K1-CR scaling]`` and
     ``[K3-CR scaling]`` beside Schur's times, timed in turns; the CR fleet
-    (static grid, B = 4096 x 50: K1-CR = K2 = 50 launches, bench.py's
-    health gates, accept beside phase 5's); a CR sweep (static grid,
+    (static grid, B = 4096 x 50, first and repeated call as in phase 5:
+    K1-CR = K2 = 50 launches, bench.py's health gates, accept beside phase
+    5's); a CR sweep (static grid,
     B = 4096 x 20, phase 10's weight rows: K3-CR = K2 = 20 and phase 10's
     gates); an N = 60 CR fleet (B = 1024 x 30, phase 18's bars);
 20. the float64 oracle's lap (``tests/data/torch_oracle_lap.npz``, written
@@ -110,7 +117,8 @@ each path's graph against its eager form.
     accept >= 0.9, max |e_y| < 0.25 m, the infeasibility counter below
     N - 1 and (a) the lap done; (b) leaves the map as it was and repeats
     (a)'s controls bit for bit; the median and p99 wall ms per step of
-    ``get_control``, ``drive`` and (b) ``scan`` + ``update_map``, and a
+    ``get_control``, ``drive`` and (b) ``scan`` + ``update_map``; ``drive``
+    graphed against eager, 200 calls each in turns (``[api drive]``); and a
     torch.profiler split of ``get_control`` into kernel and other device
     time;
 22. the scale-out path (``parallel/``), checkpoint / resume and the
@@ -127,22 +135,29 @@ each path's graph against its eager form.
     ``clear_free`` (B = 1024 x 50, dense write-back, the masks pooled by
     one all-reduce per mask class a step), both ranks' maps and logs
     bitwise equal to an unsharded run here (K4 = K2 = K1 = 50); (c) 25
-    static steps, ``save_fleet_state``, ``load_fleet_state``, 25 steps:
-    the log bitwise equal to phase 5's; (d) a ``[profiling]`` line:
+    static steps, ``save_fleet_state``, ``load_fleet_state``, 25 steps
+    (a repeated call: it captures nothing): the log bitwise equal to phase
+    5's; (d) a ``[profiling]`` line:
     ``timeit`` of one static step beside CUDA events and phase 5's wall
     per step, ``scan_marginal_cost`` of K2 beside its ``[K2 scaling]``
     time;
-23. CUDA graphs: each path of phases 5-22 (the static fleet, Schur and
-    CR; the dynamic grid and its sweep; escalation; N = 60; Real_Track;
-    the LiDAR fleet, known = true; the discovery fleet, packed and fused;
-    the single-car lap and LiDAR loop; over NCCL at world size 1 the
-    sharded static fleet and a shared-grid fleet whose mask all-reduce is
-    captured) run graphed and then eagerly under
-    ``graphs.disable_capture()``: logs, final states and maps bitwise
-    equal, the same launches; eager, replay and capture times and peak
-    memory per path; the object API's lap and its LiDAR loop (``scan``
-    replays a graph too): controls and measurements bitwise equal, with
-    the median / p99 ms of ``get_control`` and ``scan`` both ways.
+23. CUDA graphs and their cache: each path of phases 5-22 (the static
+    fleet, Schur and CR; the dynamic grid and its sweep; escalation;
+    N = 60; Real_Track; the LiDAR fleet, known = true; the discovery
+    fleet, packed and fused; the single-car lap and LiDAR loop; over NCCL
+    at world size 1 the sharded static fleet and a shared-grid fleet whose
+    mask all-reduce is captured), after ``graphs.clear_cache()``: its
+    first call (two graphs captured) and a repeated call on fresh inputs
+    of the same shapes (a new fleet; on the static and dynamic grids and
+    Real_Track a new speed profile and one more obstacle too; other
+    weights for the sweep), which captures nothing and grows the
+    allocator's reserve by nothing, each against the eager form
+    (``graphs.disable_capture()``) on its own inputs: logs, final states
+    and maps bitwise equal, the same launches; first call, repeated call,
+    eager and replay times, capture seconds and peak memory per path; the
+    object API's lap and its LiDAR loop (``scan`` and ``drive`` replay
+    graphs too): controls and measurements bitwise equal, with the median
+    / p99 ms of ``get_control``, ``drive`` and ``scan`` both ways.
 
 Prints a JSON line with each kernel's launches (its path's phase and
 phase 22), error, times and bound
@@ -231,6 +246,13 @@ SWEEP_FAILED_MAX = 0.01
 SCALE_RANKS = 2
 RANK_TIMEOUT = 600
 CKPT_STEPS = 25
+# the repeated calls' fresh inputs of the same shapes (phases 5, 19, 23):
+# starts drawn from SEED + 1, a speed profile capped at REPEAT_V_MAX m/s
+# and one more obstacle (radius REPEAT_R m) halfway between the centre
+# line and the left border at waypoint REPEAT_WP (Real_Track: RT_REPEAT_*)
+REPEAT_V_MAX = 0.8
+REPEAT_WP, REPEAT_R = 60, 0.02
+RT_REPEAT_WP, RT_REPEAT_R = 100, 0.1
 
 
 def gpu_line() -> str:
@@ -360,6 +382,14 @@ def bound(bytes_: int, ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def repeat_obstacle(centre, wp: int, radius: float):
+    """``(x, y, radius)`` of an obstacle halfway between the centre line
+    and the left border at waypoint ``wp`` of the path ``centre``."""
+    x, y = float(centre.x[wp]), float(centre.y[wp])
+    bx, by = (float(v) for v in centre.border_ub[wp])
+    return (0.5 * (x + bx), 0.5 * (y + by), radius)
+
+
 def lane_grids(grid, path, lanes: int, seed: int):
     """A (lanes, H, W) stack of the grid, each lane with 4 extra random
     disks (radius 1-4 cm) near random waypoints, drawn with numpy."""
@@ -468,10 +498,11 @@ def graph_times(wall: float, caps, steps: int):
 
 def profile_steps(label, run, steps: int, whole_ms: float, replay_ms: float,
                   card: str, counted: dict):
-    """Device time by kernel over ``run()`` (a rollout of ``steps``
-    steps), from torch.profiler's CUDA activity, and the device's idle
-    share against the whole call's ms per step (``whole_ms``, the capture
-    included) and the replays' (``replay_ms``) of the same rollout
+    """Device time by kernel over ``run(True)`` (a rollout of ``steps``
+    steps on fresh inputs, repeating ``run(False)``, which captures its
+    graphs first), from torch.profiler's CUDA activity, and the device's
+    idle share against the repeated call's ms per step (``whole_ms``) and
+    the first call's replays (``replay_ms``) of the full-length rollout
     unprofiled (the profiler slows the host's launches, not the device's
     work).  ``counted``: ``{kernel symbol: wrapper counter}``; each
     kernel's launches in the device trace must equal ``steps`` and its
@@ -482,14 +513,17 @@ def profile_steps(label, run, steps: int, whole_ms: float, replay_ms: float,
     from multi_purpose_mpc_tpu_torch.utils import kernels
     from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds
 
+    run(False)
     torch.cuda.synchronize()
     before = kernels.launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof, \
             capture_seconds() as caps:
         t0 = time.perf_counter()
-        run()
+        run(True)
         torch.cuda.synchronize()
         prof_ms = graph_times(time.perf_counter() - t0, caps, steps)[2]
+    if caps:
+        raise AssertionError(f"[profile] {label}: the repeated call captured")
     after = kernels.launch_counts()
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
@@ -504,11 +538,12 @@ def profile_steps(label, run, steps: int, whole_ms: float, replay_ms: float,
     busy = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:6]
     k2 = sum(dev_us(e) for e in events if "corridor_select" in e.key)
-    print(f"[profile] {label}, ms per step (torch.profiler, {card}): whole "
-          f"call {whole_ms:.3f} unprofiled, replays {replay_ms:.3f} "
-          f"({prof_ms:.3f} profiled), device busy {busy:.3f}, idle "
-          f"{100.0 * (1.0 - busy / whole_ms):.1f} % of the whole call, "
-          f"{100.0 * (1.0 - busy / replay_ms):.1f} % of the replays; "
+    print(f"[profile] {label}, ms per step (torch.profiler, {card}): "
+          f"repeated call {whole_ms:.3f} unprofiled ({prof_ms:.3f} "
+          f"profiled), first call's replays {replay_ms:.3f}, device busy "
+          f"{busy:.3f}, idle {100.0 * (1.0 - busy / whole_ms):.1f} % of the "
+          f"repeated call, {100.0 * (1.0 - busy / replay_ms):.1f} % of the "
+          f"replays; "
           f"launches in the device trace {traced} ({steps} steps, equal to "
           f"the wrappers' counts); K2 {k2 / 1e3 / steps:.4f}; "
           f"top: " + "; ".join(
@@ -553,6 +588,7 @@ API_LAP_STEPS = 300
 API_LIDAR_STEPS = 60
 API_CHECKED_STEPS = 5  # steps whose corridor is held against the plain path
 API_PROFILE_STEPS = 20
+API_DRIVE_REPS = 100  # phase 21: drive's calls a form and turn
 API_GRAPH_STEPS = 20  # phase 23: the lap's graphed controls held to eager
 API_MAX_EY = 0.25
 API_ACCEPT = 0.9
@@ -710,6 +746,32 @@ def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
                     or (lidar is None and not done):
                 raise AssertionError(f"API {label} misses its bars")
 
+        # drive graphed against eager, in turns on one car (the first
+        # graphed call, which captures, apart)
+        from multi_purpose_mpc_tpu_torch.utils import graphs
+
+        m, rp, car, ctrl = world()
+        u = ctrl.get_control()
+        drive_ms = {"graphed": [], "eager": []}
+        for form in ("graphed", "eager", "eager", "graphed"):
+            with (graphs.disable_capture() if form == "eager"
+                  else contextlib.nullcontext()):
+                for _ in range(API_DRIVE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    car.drive(u)
+                    torch.cuda.synchronize()
+                    drive_ms[form].append(time.perf_counter() - t0)
+        first_drive = drive_ms["graphed"].pop(0) * 1e3
+        print(f"[api drive] BicycleModel.drive, {2 * API_DRIVE_REPS} calls "
+              f"a form in turns (graphed, eager, eager, graphed), wall ms "
+              f"median / p99 synchronised: graphed "
+              f"{pct(drive_ms['graphed'], 50):.4f} / "
+              f"{pct(drive_ms['graphed'], 99):.4f} (the first call, which "
+              f"captures, {first_drive:.3f}), eager "
+              f"{pct(drive_ms['eager'], 50):.4f} / "
+              f"{pct(drive_ms['eager'], 99):.4f} on {card}", flush=True)
+
         # where get_control's time goes: torch.profiler over a fresh loop
         from torch.profiler import ProfilerActivity, profile
 
@@ -786,7 +848,7 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
     from multi_purpose_mpc_tpu_torch.utils.checkpoint import (
         load_fleet_state, save_fleet_state)
     from multi_purpose_mpc_tpu_torch.utils.profiling import (
-        scan_marginal_cost, timeit)
+        capture_seconds, scan_marginal_cost, timeit)
 
     grid, path, cfg, model = s["grid"], s["path"], s["cfg"], s["model"]
     fleet, table, static_log = s["fleet"], s["table"], s["static_log"]
@@ -905,10 +967,15 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
         ck = os.path.join(d, "fleet.npz")
         save_fleet_state(ck, first.final_state, step=CKPT_STEPS)
         state, step = load_fleet_state(ck, like=first.final_state)
-    rest = simulate_fleet(grid, path, cfg, model,
-                          SimConfig(max_steps=STEPS - CKPT_STEPS), state,
-                          table=table)
+    # the resumed call repeats the first one's key: it replays its graphs
+    with capture_seconds() as caps:
+        rest = simulate_fleet(grid, path, cfg, model,
+                              SimConfig(max_steps=STEPS - CKPT_STEPS), state,
+                              table=table)
     torch.cuda.synchronize()
+    if CKPT_STEPS != STEPS - CKPT_STEPS or caps:
+        raise AssertionError(f"(c) the resumed call captured {len(caps)} "
+                             "graphs; it should replay the cached ones")
     dt = time.perf_counter() - t0
     count(read_counts(), expect(admm_fused=STEPS, corridor_select=STEPS),
           "(c)")
@@ -919,7 +986,8 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
     same_log(first.log, head, "(c) first steps vs phase 5", static_log._fields)
     same_log(rest.log, tail, "(c) resumed steps vs phase 5", static_log._fields)
     print(f"[scale-out] (c) {CKPT_STEPS} steps, save_fleet_state, "
-          f"load_fleet_state, {STEPS - CKPT_STEPS} steps at B={B}: the log "
+          f"load_fleet_state, {STEPS - CKPT_STEPS} steps at B={B} (the "
+          f"first call's cached graphs replayed): the log "
           f"bitwise equal to phase 5's; {B * STEPS / dt:.1f} car-steps/s "
           f"({dt:.3f} s wall with the checkpoint) on {card}", flush=True)
 
@@ -937,7 +1005,8 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
           f"phase 5's fleet, a one-step rollout, which captures nothing; "
           f"CUDA events, median of 10): {step_s * 1e3:.4f} "
           f"ms; chip_smoke.cuda_ms of the same: {step_ev:.4f} ms; phase 5's "
-          f"whole call per step over {STEPS} steps: {s['main_ms']:.4f} ms.  "
+          f"repeated call per step over {STEPS} steps: {s['main_ms']:.4f} ms."
+          f"  "
           f"scan_marginal_cost of K2 (B={B}, 64 iterations on rolled "
           f"blocks, best of 3): {k2_s * 1e3:.5f} ms, beside [K2 scaling]'s "
           f"device time {s['k2_ms']:.5f} ms; on {card}", flush=True)
@@ -945,13 +1014,18 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
 
 
 def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
-    """Phase 23 (module docstring): each path captured and replayed, then
-    in its eager form (``graphs.disable_capture``), bit for bit and launch
-    for launch; eager, replay and capture times and peak memory.
+    """Phase 23 (module docstring): each path captured (its first call,
+    after ``graphs.clear_cache()``) and called again on fresh inputs of
+    the same shapes (the repeated call, which replays the cached graphs),
+    each held bit for bit and launch for launch against the eager form
+    (``graphs.disable_capture``) on its own inputs; the repeated call
+    grows the allocator's reserve by nothing.  Times, capture seconds and
+    peak memory of each form.
 
-    ``runs``: ``(label, run, lanes, steps)``, ``run()`` a rollout;
-    ``api_ctx``: :func:`api_world`'s arguments; ``nccl_runs(mesh)``: the
-    runs to make over an NCCL group at world size 1."""
+    ``runs``: ``(label, run, lanes, steps)``, ``run(fresh)`` a rollout on
+    the first inputs or on the fresh ones; ``api_ctx``: :func:`api_world`'s
+    arguments; ``nccl_runs(mesh)``: the runs to make over an NCCL group at
+    world size 1."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -963,67 +1037,88 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
     from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds
     from multi_purpose_mpc_tpu_torch.utils.tree import leaves
 
-    def forms(run):
-        """Each form's result, wall, launches, captures and peak memory
-        above what was allocated before the call."""
-        out = {}
-        for form in ("graph", "eager"):
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-            reserved = torch.cuda.memory_reserved()
-            t0 = time.perf_counter()
-            with (contextlib.nullcontext() if form == "graph"
-                  else graphs.disable_capture()), capture_seconds() as caps:
-                res = run()
-                torch.cuda.synchronize()
-            out[form] = dict(res=res, wall=time.perf_counter() - t0,
-                             launches=read_counts(), caps=list(caps),
-                             graphs=len(caps),
-                             peak=(torch.cuda.max_memory_allocated() - held)
-                             / 2**30,
-                             cached=(torch.cuda.memory_reserved() - reserved)
-                             / 2**30)
-        return out["graph"], out["eager"]
+    def form(run, fresh, eager):
+        """One call's result, wall, launches, captures, peak memory above
+        what was allocated before it and the growth of the reserve."""
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        with (graphs.disable_capture() if eager
+              else contextlib.nullcontext()), capture_seconds() as caps:
+            res = run(fresh)
+            torch.cuda.synchronize()
+        return dict(res=res, wall=time.perf_counter() - t0,
+                    launches=read_counts(), caps=list(caps),
+                    peak=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                    grew=torch.cuda.memory_reserved() - reserved)
+
+    def fingerprint(res):
+        """Each leaf's sum (NaN read as 0), for telling two results apart."""
+        return torch.stack([torch.nan_to_num(x.double()).sum()
+                            for x in leaves(res)])
+
+    def same_as_eager(label, a, b):
+        la, lb = leaves(a["res"]), leaves(b["res"])
+        bad = [i for i, (x, y) in enumerate(zip(la, lb)) if not same_bits(x, y)]
+        if len(la) != len(lb) or bad:
+            raise AssertionError(f"[graphs] {label}: leaves that differ from "
+                                 f"the eager form's: {bad}")
+        if a["launches"] != b["launches"]:
+            raise AssertionError(f"[graphs] {label}: launches {a['launches']}"
+                                 f" graphed, {b['launches']} eager")
+        return len(la)
 
     def compare(label, run, lanes, steps):
-        g, e = forms(run)
-        lg, le = leaves(g["res"]), leaves(e["res"])
-        bad = [i for i, (a, b) in enumerate(zip(lg, le)) if not same_bits(a, b)]
-        if g["graphs"] == 0 or e["graphs"] or len(lg) != len(le) or bad:
-            raise AssertionError(f"[graphs] {label}: {g['graphs']} graphs "
-                                 f"captured, {e['graphs']} eager; leaves "
-                                 f"that differ: {bad}")
-        if g["launches"] != e["launches"]:
-            raise AssertionError(f"[graphs] {label}: launches {g['launches']}"
-                                 f" graphed, {e['launches']} eager")
-        eager_ms = e["wall"] / steps * 1e3
-        cap_s, first_s, replay_ms = graph_times(g["wall"], g["caps"], steps)
-        per_step = {k: v / steps for k, v in g["launches"].items() if v}
-        print(f"[graphs] {label}, B={lanes} x {steps} steps: {len(lg)} "
-              f"leaves (logs, final state, maps) bitwise equal to the eager "
-              f"form's; launches a step {per_step} in both; whole call "
-              f"{g['wall'] / steps * 1e3:.4f} ms a step graphed "
-              f"({lanes * steps / g['wall']:.1f} car-steps/s), "
-              f"{eager_ms:.4f} eager ({lanes * steps / e['wall']:.1f} "
-              f"car-steps/s); graphed: capture {cap_s:.3f} s "
-              f"({g['graphs']} graphs), first step (the warm-up) "
-              f"{first_s * 1e3:.3f} ms, replays {replay_ms:.4f} ms a step "
-              f"({lanes * 1e3 / replay_ms:.1f} car-steps/s); peak memory "
-              f"above the held {e['peak']:.3f} GiB eager, {g['peak']:.3f} "
-              f"GiB graph; the allocator's reserve grew {e['cached']:.3f} "
-              f"GiB eager, {g['cached']:.3f} GiB graph on {card}",
+        graphs.clear_cache()
+        first = form(run, False, False)
+        eager0 = form(run, False, True)
+        n = same_as_eager(f"{label}, first call", first, eager0)
+        mark = fingerprint(first["res"])
+        first["res"] = eager0["res"] = None  # the caller drops its results
+        hit = form(run, True, False)
+        eager1 = form(run, True, True)
+        same_as_eager(f"{label}, repeated call", hit, eager1)
+        fresh = not torch.equal(mark, fingerprint(hit["res"]))
+        if (len(first["caps"]) != 2 or hit["caps"] or eager0["caps"]
+                or eager1["caps"] or hit["grew"] or not fresh):
+            raise AssertionError(
+                f"[graphs] {label}: graphs captured by the first call "
+                f"{len(first['caps'])} (2 expected), by the repeated call "
+                f"{len(hit['caps'])}, eagerly {len(eager0['caps'])} + "
+                f"{len(eager1['caps'])}; the repeated call grew the reserve "
+                f"by {hit['grew']} bytes; its results differ from the "
+                f"first call's: {fresh}")
+        ms = lambda f: f["wall"] / steps * 1e3
+        cap_s, first_s, replay_ms = graph_times(first["wall"], first["caps"],
+                                                steps)
+        per_step = {k: v / steps for k, v in hit["launches"].items() if v}
+        print(f"[graphs] {label}, B={lanes} x {steps} steps: {n} leaves "
+              f"(logs, final state, maps) bitwise equal to the eager form's "
+              f"for the first call and for the repeated call (fresh inputs "
+              f"of the same shapes); launches a step {per_step} in each; ms "
+              f"a step: repeated call {ms(hit):.4f} "
+              f"({lanes * 1e3 / ms(hit):.1f} car-steps/s), first call "
+              f"{ms(first):.4f} ({lanes * 1e3 / ms(first):.1f}; capture "
+              f"{cap_s:.3f} s, first step {first_s * 1e3:.3f} ms, replays "
+              f"{replay_ms:.4f}), eager {ms(eager1):.4f} on the fresh inputs"
+              f" ({ms(eager0):.4f} on the first); peak memory above the held "
+              f"{eager1['peak']:.3f} GiB eager, {first['peak']:.3f} first "
+              f"call, {hit['peak']:.3f} repeated; the allocator's reserve "
+              f"grew {first['grew'] / 2**30:.3f} GiB at the first call, "
+              f"{hit['grew'] / 2**30:.3f} at the repeated call on {card}",
               flush=True)
 
     def api_loop(steps, lidar):
         """The two-call loop (with ``scan`` + ``update_map`` first when
         ``lidar``): each step's control and measurements, and the ms of
-        ``get_control`` and of the scan."""
+        ``get_control``, of ``drive`` (synchronised) and of the scan."""
         from multi_purpose_mpc_tpu_torch import api
 
         m, rp, car, ctrl = api_world(*api_ctx)
         sensor = api.LidarModel(FoV=180, range=2.0, resolution=2)
-        out, ms = [], {"get_control": [], "scan": []}
+        out, ms = [], {"get_control": [], "drive": [], "scan": []}
         for _ in range(steps):
             if lidar:
                 t0 = time.perf_counter()
@@ -1034,7 +1129,10 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
             u = ctrl.get_control()
             ms["get_control"].append((time.perf_counter() - t0) * 1e3)
             out.append(np.concatenate([u, meas.ravel()]) if lidar else u)
+            t0 = time.perf_counter()
             car.drive(u)
+            torch.cuda.synchronize()
+            ms["drive"].append((time.perf_counter() - t0) * 1e3)
             if car.s >= rp.length:
                 break
         return np.stack(out), ms
@@ -1072,6 +1170,8 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
         for label, run, lanes, steps in nccl_runs(global_fleet_mesh()):
             compare(f"NCCL at world size 1, {label}", run, lanes, steps)
     finally:
+        # the cached graphs hold the group's all-reduce: freed before it
+        graphs.clear_cache()
         dist.destroy_process_group()
 
 
@@ -1145,13 +1245,33 @@ def main():
     map_cfg, path_cfg, model, cfg, speed_cfg, obstacles = sim_track_preset(
         asset_dir=os.path.join(REPO, "assets", "maps"))
     grid = load_grid_map(map_cfg, device=dev)
-    path = build_reference_path(grid, path_cfg)
+    centre = build_reference_path(grid, path_cfg)
     grid = add_obstacles_host(grid, map_cfg.origin, map_cfg.resolution, obstacles)
-    path = compute_speed_profile(path, speed_cfg)
+    path = compute_speed_profile(centre, speed_cfg)
     table = static_horizon_table(grid, path, cfg, model)
     wp0, ey0 = feasible_starts(grid, path, cfg, model, B,
                                np.random.default_rng(SEED))
     fleet = init_fleet(path, cfg.N, B, e_y0=ey0, wp_id0=wp0)
+    # the repeated calls' world: one more obstacle, another speed profile,
+    # other starts; the same shapes
+    grid2 = add_obstacles_host(grid, map_cfg.origin, map_cfg.resolution,
+                               [repeat_obstacle(centre, REPEAT_WP, REPEAT_R)])
+    path2 = compute_speed_profile(centre, dataclasses.replace(
+        speed_cfg, v_max=REPEAT_V_MAX))
+    table2 = static_horizon_table(grid2, path2, cfg, model)
+
+    def starts(g, p, c, n, lanes=None):
+        wp, ey = feasible_starts(g, p, c, model, n,
+                                 np.random.default_rng(SEED + 1))
+        return init_fleet(p, c.N, lanes or n, e_y0=ey[:lanes],
+                          wp_id0=wp[:lanes])
+
+    fleet2 = starts(grid2, path2, cfg, B)
+    # ... and on the first world's grid (the LiDAR fleets' true map)
+    fleet_b = starts(grid, path2, cfg, B)
+    fleet16_b = starts(grid, path2, cfg, B, LIDAR_B)
+    if torch.equal(table, table2) or torch.equal(grid.occ, grid2.occ):
+        raise AssertionError("the repeated calls' world equals the first")
     torch.cuda.synchronize()
     print(f"[setup] Sim_Track {grid.height}x{grid.width} grid, {path.n_wp} "
           f"waypoints, table {tuple(table.shape)}, {B} feasible starts, "
@@ -1166,6 +1286,8 @@ def main():
     wp60, ey60 = feasible_starts(grid, path, cfg60, model, N60_FLEET_B,
                                  np.random.default_rng(SEED))
     fleet60 = init_fleet(path, N60, N60_FLEET_B, e_y0=ey60, wp_id0=wp60)
+    table60_2 = static_horizon_table(grid2, path2, cfg60, model)
+    fleet60_2 = starts(grid2, path2, cfg60, N60_FLEET_B)
     # the dynamic grid's and the LiDAR fleet's tables (phases 3, 7, 13-17)
     scan = corridor_extract.build_scanline_table(grid, path, cfg.n_scan_samples)
     located0, idx0 = _locate_horizon(fleet, path, cfg)
@@ -1315,30 +1437,55 @@ def main():
           flush=True)
 
     # ---- phase 5: main path ----
-    reset_counts()
-    t0 = time.perf_counter()
-    with capture_seconds() as caps:
-        res = simulate_fleet(grid, path, cfg, model,
-                             SimConfig(max_steps=STEPS), fleet, table=table)
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    cap_s, first_s, replay_ms = graph_times(dt, caps, STEPS)
-    launches = read_counts()
-    print(f"[main] simulate_fleet B={B} x {STEPS} steps: launches {launches}",
-          flush=True)
-    if launches != expect(admm_fused=STEPS, corridor_select=STEPS):
-        raise AssertionError(f"main path launches {launches}")
+    def first_and_repeated(label, run, lanes, steps, expected, path_of):
+        """``run(fresh)``, a rollout, twice: the first call captures, the
+        repeated call (fresh inputs of the same shapes) replays the cached
+        graphs.  Launch counts and health gates on both; prints the
+        repeated call's rate, the headline, the first call's beside it.
+        Returns ``(first result, repeated ms a step, first call's replays
+        ms a step)``."""
+        out, ms = [], []
+        for fresh in (False, True):
+            reset_counts()
+            t0 = time.perf_counter()
+            with capture_seconds() as caps:
+                res = run(fresh)
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = read_counts()
+            if got != expected:
+                raise AssertionError(f"{label} launches {got}")
+            if fresh and caps:
+                raise AssertionError(f"{label}: the repeated call captured")
+            h = health(res.log, res.final_state, path_of(fresh), model, steps)
+            check_health(h, f"{label}{', repeated call' if fresh else ''}")
+            out.append((res, dt, caps, h))
+        (res, dt1, caps, h1), (_, dt2, _, h2) = out
+        cap_s, first_s, replay_ms = graph_times(dt1, caps, steps)
+        print(f"[{label}] {lanes * steps / dt2:.1f} car-steps/s, the repeated "
+              f"call (fresh starts, speed profile, obstacle and table of the "
+              f"same shapes; the cached graphs replayed {steps} times, "
+              f"{dt2 / steps * 1e3:.4f} ms a step), {fmt_health(h2)}; the "
+              f"first call {lanes * steps / dt1:.1f} car-steps/s ({dt1:.3f} s"
+              f" wall: capture {cap_s:.3f} s, first step "
+              f"{first_s * 1e3:.3f} ms, replays {replay_ms:.4f} ms a step), "
+              f"{fmt_health(h1)}; launches {expected} each, on {card}",
+              flush=True)
+        return res, dt2 / steps * 1e3, replay_ms
+
+    res, main_ms, replay_ms = first_and_repeated(
+        "main", lambda fresh: simulate_fleet(
+            *((grid2, path2) if fresh else (grid, path)), cfg, model,
+            SimConfig(max_steps=STEPS), fleet2 if fresh else fleet,
+            table=table2 if fresh else table), B, STEPS,
+        expect(admm_fused=STEPS, corridor_select=STEPS),
+        lambda fresh: path2 if fresh else path)
+    launches = expect(admm_fused=STEPS, corridor_select=STEPS)
     static_log = res.log
-    main_ms = dt / STEPS * 1e3
-    h = health(res.log, res.final_state, path, model, STEPS)
-    print(f"[main] {B * STEPS / dt:.1f} car-steps/s, the whole call ({dt:.3f}"
-          f" s wall: capture {cap_s:.3f} s, first step {first_s * 1e3:.3f} "
-          f"ms, replays {replay_ms:.4f} ms a step, "
-          f"{B * 1e3 / replay_ms:.1f} car-steps/s), {fmt_health(h)} on "
-          f"{card}", flush=True)
-    check_health(h, "main")
-    profile_steps(f"static grid B={B}", lambda: simulate_fleet(
-        grid, path, cfg, model, SimConfig(max_steps=10), fleet, table=table),
+    profile_steps(f"static grid B={B}", lambda fresh: simulate_fleet(
+        *((grid2, path2) if fresh else (grid, path)), cfg, model,
+        SimConfig(max_steps=10), fleet2 if fresh else fleet,
+        table=table2 if fresh else table),
         10, main_ms, replay_ms, card,
         {"admm_fused_kernel": "admm_fused",
          "corridor_select_kernel": "corridor_select"})
@@ -1536,15 +1683,19 @@ def main():
     rt_map, rt_path_cfg, rt_model, rt_cfg, rt_speed, _ = real_track_preset(
         asset_dir=os.path.join(REPO, "assets", "maps"))
     rt_grid = load_grid_map(rt_map, device=dev)
-    rt_path = compute_speed_profile(build_reference_path(rt_grid, rt_path_cfg),
-                                    rt_speed)
-    rng = np.random.default_rng(SEED)  # bench.py's draw (bench.py:198-204)
-    rt_fleet = init_fleet(
-        rt_path, rt_cfg.N, RT_BATCH,
-        e_y0=torch.tensor(rng.uniform(-0.1, 0.1, RT_BATCH),
-                          dtype=torch.float32, device=dev),
-        wp_id0=torch.tensor(rng.integers(0, rt_path.n_wp // 2, RT_BATCH),
-                            dtype=torch.int32, device=dev))
+    rt_centre = build_reference_path(rt_grid, rt_path_cfg)
+    rt_path = compute_speed_profile(rt_centre, rt_speed)
+
+    def rt_starts(p, seed):
+        rng = np.random.default_rng(seed)  # bench.py's draw (bench.py:198-204)
+        return init_fleet(
+            p, rt_cfg.N, RT_BATCH,
+            e_y0=torch.tensor(rng.uniform(-0.1, 0.1, RT_BATCH),
+                              dtype=torch.float32, device=dev),
+            wp_id0=torch.tensor(rng.integers(0, p.n_wp // 2, RT_BATCH),
+                                dtype=torch.int32, device=dev))
+
+    rt_fleet = rt_starts(rt_path, SEED)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1565,6 +1716,14 @@ def main():
           f"0.05 = {ey_bar:.4f} m", flush=True)
     if h["failed"] != 0 or h["solver_fail"] >= 0.02 or h["max_ey"] >= ey_bar:
         raise AssertionError(f"Real_Track health gates failed: {h}")
+    # phase 23's repeated Real_Track call: one more obstacle, another
+    # speed profile, other starts
+    rt_grid2 = add_obstacles_host(
+        rt_grid, rt_map.origin, rt_map.resolution,
+        [repeat_obstacle(rt_centre, RT_REPEAT_WP, RT_REPEAT_R)])
+    rt_path2 = compute_speed_profile(rt_centre, dataclasses.replace(
+        rt_speed, v_max=REPEAT_V_MAX))
+    rt_fleet2 = rt_starts(rt_path2, SEED + 1)
 
     # ---- phases 13-17: LiDAR in the loop ----
     def breakdown(label, state, cells, step_ms):
@@ -1952,34 +2111,26 @@ def main():
           f"N={cfg.N} ({card})", flush=True)
 
     # the CR fleet: the main path with the CR stage solver
-    reset_counts()
-    t0 = time.perf_counter()
-    with capture_seconds() as caps:
-        cr_res = simulate_fleet(grid, path, cfg_cr, model,
-                                SimConfig(max_steps=STEPS), fleet, table=table)
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    cap_s, first_s, cr_replay_ms = graph_times(dt, caps, STEPS)
-    cr_launches = read_counts()
-    print(f"[cr fleet] simulate_fleet stage_solver=cr, static grid, B={B} x "
-          f"{STEPS} steps: launches {cr_launches}", flush=True)
-    if cr_launches != expect(admm_fused_cr=STEPS, corridor_select=STEPS):
-        raise AssertionError(f"CR fleet launches {cr_launches}")
+    cr_run = lambda steps: lambda fresh: simulate_fleet(
+        *((grid2, path2) if fresh else (grid, path)), cfg_cr, model,
+        SimConfig(max_steps=steps), fleet2 if fresh else fleet,
+        table=table2 if fresh else table)
+    cr_res, cr_ms, cr_replay_ms = first_and_repeated(
+        "cr fleet", cr_run(STEPS), B, STEPS,
+        expect(admm_fused_cr=STEPS, corridor_select=STEPS),
+        lambda fresh: path2 if fresh else path)
+    cr_launches = expect(admm_fused_cr=STEPS, corridor_select=STEPS)
     h_cr = health(cr_res.log, cr_res.final_state, path, model, STEPS)
     h_s = health(static_log, res.final_state, path, model, STEPS)
-    print(f"[cr fleet] {B * STEPS / dt:.1f} car-steps/s, the whole call "
-          f"({dt:.3f} s wall: capture {cap_s:.3f} s, first step "
-          f"{first_s * 1e3:.3f} ms, replays {cr_replay_ms:.4f} ms a step, "
-          f"{B * 1e3 / cr_replay_ms:.1f} car-steps/s), "
-          f"{fmt_health(h_cr)}; Schur fleet (phase 5) accept "
+    print(f"[cr fleet] stage_solver=cr, static grid, B={B} x {STEPS} steps: "
+          f"first call accept {h_cr['accept']:.4f}, solver-failure "
+          f"{h_cr['solver_fail']:.5f}; Schur fleet (phase 5) accept "
           f"{h_s['accept']:.4f}, solver-failure {h_s['solver_fail']:.5f} on "
           f"{card}", flush=True)
-    check_health(h_cr, "CR fleet")
-    profile_steps(f"static grid, CR, B={B}", lambda: simulate_fleet(
-        grid, path, cfg_cr, model, SimConfig(max_steps=10), fleet,
-        table=table), 10, dt / STEPS * 1e3, cr_replay_ms, card,
-        {"admm_fused_kernel": "admm_fused_cr",
-         "corridor_select_kernel": "corridor_select"})
+    profile_steps(f"static grid, CR, B={B}", cr_run(10), 10, cr_ms,
+                  cr_replay_ms, card,
+                  {"admm_fused_kernel": "admm_fused_cr",
+                   "corridor_select_kernel": "corridor_select"})
     del cr_res
 
     # the CR sweep: per-lane weights reach K3-CR
@@ -2097,49 +2248,68 @@ def main():
 
     def nccl_runs(mesh):
         return [
-            ("simulate_fleet_sharded, static grid", lambda: simulate_fleet_sharded(
-                mesh, grid, path, cfg, model, SimConfig(max_steps=STEPS),
-                fleet), B, STEPS),
+            ("simulate_fleet_sharded, static grid",
+             lambda fresh: simulate_fleet_sharded(
+                 mesh, *w1(fresh), cfg, model, SimConfig(max_steps=STEPS),
+                 fl(fresh)), B, STEPS),
             ("simulate_lidar_fleet_sharded, shared grid, clear_free (the "
-             "mask all-reduce captured)", lambda: simulate_lidar_fleet_sharded(
-                 mesh, grid, free, path, cfg, model, dyn_sim, lidar, fleet16,
-                 shared_grid=True, clear_free=True, **lidar_kw),
-             LIDAR_B, STEPS)]
+             "mask all-reduce captured)",
+             lambda fresh: simulate_lidar_fleet_sharded(
+                 mesh, grid, free, pl(fresh), cfg, model, dyn_sim, lidar,
+                 fleet16_b if fresh else fleet16, shared_grid=True,
+                 clear_free=True, **lidar_kw), LIDAR_B, STEPS)]
 
+    # each run(fresh): on the first inputs, or on fresh ones of the same
+    # shapes (the second world on the static and dynamic grids; new starts
+    # and a new speed profile on the LiDAR paths' true map; other weights)
+    w1 = lambda fresh: (grid2, path2) if fresh else (grid, path)
+    tb = lambda fresh: table2 if fresh else table
+    fl = lambda fresh: fleet2 if fresh else fleet
+    scan2 = corridor_extract.build_scanline_table(grid2, path2,
+                                                  cfg.n_scan_samples)
+    weights2 = WeightSet(*(w.roll(-1, 0) for w in weights))
+    pl = lambda fresh: path2 if fresh else path
     graphs_phase([
-        ("static grid, Schur", lambda: simulate_fleet(
-            grid, path, cfg, model, SimConfig(max_steps=STEPS), fleet,
-            table=table), B, STEPS),
-        ("static grid, CR", lambda: simulate_fleet(
-            grid, path, cfg_cr, model, SimConfig(max_steps=STEPS), fleet,
-            table=table), B, STEPS),
-        ("dynamic grid", lambda: simulate_fleet(
-            grid, path, cfg, model, dyn_sim, fleet, table=scan), B, STEPS),
-        ("dynamic sweep", lambda: simulate_fleet(
-            grid, path, cfg, model, dyn_sim, fleet, table=scan,
-            weights=weights), B, STEPS),
-        ("escalation", lambda: simulate_fleet(
-            grid, path, esc_cfg, model, SimConfig(max_steps=ESC_STEPS), fleet,
-            table=table), B, ESC_STEPS),
-        (f"N = {N60}", lambda: simulate_fleet(
-            grid, path, cfg60, model, SimConfig(max_steps=N60_STEPS), fleet60,
-            table=table60), N60_FLEET_B, N60_STEPS),
-        ("Real_Track (table built inside)", lambda: simulate_fleet(
-            rt_grid, rt_path, rt_cfg, rt_model, SimConfig(max_steps=RT_STEPS),
-            rt_fleet), RT_BATCH, RT_STEPS),
-        ("LiDAR fleet, known = true (packed)", lambda: simulate_lidar_fleet(
-            grid, grid, path, cfg, model, dyn_sim, lidar, fleet, **lidar_kw),
-         B, STEPS),
-        *((f"discovery fleet, {wb}", lambda wb=wb: simulate_lidar_fleet(
-            grid, free, path, cfg, model, dyn_sim, lidar, fleet16,
-            writeback_backend=wb, **lidar_kw), LIDAR_B, STEPS)
+        ("static grid, Schur", lambda fresh: simulate_fleet(
+            *w1(fresh), cfg, model, SimConfig(max_steps=STEPS), fl(fresh),
+            table=tb(fresh)), B, STEPS),
+        ("static grid, CR", lambda fresh: simulate_fleet(
+            *w1(fresh), cfg_cr, model, SimConfig(max_steps=STEPS), fl(fresh),
+            table=tb(fresh)), B, STEPS),
+        ("dynamic grid", lambda fresh: simulate_fleet(
+            *w1(fresh), cfg, model, dyn_sim, fl(fresh),
+            table=scan2 if fresh else scan), B, STEPS),
+        ("dynamic sweep", lambda fresh: simulate_fleet(
+            *w1(fresh), cfg, model, dyn_sim, fl(fresh),
+            table=scan2 if fresh else scan,
+            weights=weights2 if fresh else weights), B, STEPS),
+        ("escalation", lambda fresh: simulate_fleet(
+            *w1(fresh), esc_cfg, model, SimConfig(max_steps=ESC_STEPS),
+            fl(fresh), table=tb(fresh)), B, ESC_STEPS),
+        (f"N = {N60}", lambda fresh: simulate_fleet(
+            *w1(fresh), cfg60, model, SimConfig(max_steps=N60_STEPS),
+            fleet60_2 if fresh else fleet60,
+            table=table60_2 if fresh else table60), N60_FLEET_B, N60_STEPS),
+        ("Real_Track (table built inside)", lambda fresh: simulate_fleet(
+            *((rt_grid2, rt_path2) if fresh else (rt_grid, rt_path)), rt_cfg,
+            rt_model, SimConfig(max_steps=RT_STEPS),
+            rt_fleet2 if fresh else rt_fleet), RT_BATCH, RT_STEPS),
+        ("LiDAR fleet, known = true (packed)", lambda fresh: simulate_lidar_fleet(
+            grid, grid, pl(fresh), cfg, model, dyn_sim, lidar,
+            fleet_b if fresh else fleet, **lidar_kw), B, STEPS),
+        *((f"discovery fleet, {wb}", lambda fresh, wb=wb: simulate_lidar_fleet(
+            grid, free, pl(fresh), cfg, model, dyn_sim, lidar,
+            fleet16_b if fresh else fleet16, writeback_backend=wb,
+            **lidar_kw), LIDAR_B, STEPS)
           for wb in ("packed", "fused")),
-        ("single-car lap", lambda: simulate_closed_loop(
-            grid, path, cfg, model, SimConfig(max_steps=250),
-            state0=init_car_state(path, cfg.N), table=table), 1, 250),
-        ("single-car LiDAR loop", lambda: simulate_lidar_loop(
-            grid, free, path, cfg, model, SimConfig(max_steps=LOOP_STEPS),
-            lidar, state0=init_car_state(path, cfg.N), table=scan), 1,
+        ("single-car lap", lambda fresh: simulate_closed_loop(
+            *w1(fresh), cfg, model, SimConfig(max_steps=250),
+            state0=init_car_state(pl(fresh), cfg.N), table=tb(fresh)), 1,
+         250),
+        ("single-car LiDAR loop", lambda fresh: simulate_lidar_loop(
+            grid, free, pl(fresh), cfg, model,
+            SimConfig(max_steps=LOOP_STEPS), lidar,
+            state0=init_car_state(pl(fresh), cfg.N), table=scan), 1,
          LOOP_STEPS),
     ], (map_cfg, path_cfg, model, cfg, speed_cfg, obstacles), nccl_runs,
         card, reset_counts, read_counts)

@@ -44,7 +44,7 @@ from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
 from multi_purpose_mpc_tpu_torch.utils import graphs
 from multi_purpose_mpc_tpu_torch.utils import maps as maps_util
 from multi_purpose_mpc_tpu_torch.utils import viz
-from multi_purpose_mpc_tpu_torch.utils.tree import leaves, rebuild, tree_map
+from multi_purpose_mpc_tpu_torch.utils.tree import leaves, tree_map
 
 _F32 = torch.float32
 
@@ -333,6 +333,7 @@ class BicycleModel:
         self._model_cfg = ModelConfig(length=length, width=width, Ts=Ts)
         self._N = 30  # replaced when an MPC attaches
         self._state: CarState = init_car_state(reference_path.path_data, self._N)
+        self._graphed = _Graphed(self._drive_step)
 
     # --- state views -------------------------------------------------
     @property
@@ -414,13 +415,35 @@ class BicycleModel:
         e_y, e_psi = bike.t2s(pd, wp, st.x, st.y, st.psi)
         self._state = dataclasses.replace(st, wp_id=wp, e_y=e_y, e_psi=e_psi)
 
+    # the state fields the plant step reads, and the ones it writes
+    _DRIVE_READS = ("x", "y", "psi", "s", "e_y", "e_psi", "wp_id")
+    _DRIVE_WRITES = ("x", "y", "psi", "s")
+
+    def _drive_step(self, vd, *fields):
+        st = dataclasses.replace(self._state,
+                                 **dict(zip(self._DRIVE_READS, fields)))
+        st = bike.drive(st, self.reference_path.path_data, vd[:1], vd[1:],
+                        self.length, self.Ts)
+        return tuple(getattr(st, f) for f in self._DRIVE_WRITES)
+
     def drive(self, u) -> None:
         """Apply [v, delta] for one Ts (reference:
-        spatial_bicycle_models.py:221-244)."""
+        spatial_bicycle_models.py:221-244).  On the card the plant step
+        replays a CUDA graph (the counterpart of the JAX API's jitted
+        drive) on copies of the fields it reads, captured at the first
+        call and again once the path is replaced."""
+        st = self._state
         vd = torch.tensor([float(u[0]), float(u[1])], dtype=_F32,
-                          device=self._state.x.device)
-        self._state = bike.drive(self._state, self.reference_path.path_data,
-                                 vd[:1], vd[1:], self.length, self.Ts)
+                          device=st.x.device)
+        fields = [getattr(st, f) for f in self._DRIVE_READS]
+        if graphs.should_capture(st.x.device):
+            key = (self.reference_path.path_data, self.length, self.Ts)
+            new = self._graphed(key, None, vd, *fields)
+            new = [x.clone() for x in new]  # the next replay rewrites them
+        else:
+            new = self._drive_step(vd, *fields)
+        self._state = dataclasses.replace(
+            st, **dict(zip(self._DRIVE_WRITES, new)))
 
     def show(self, ax=None):
         import matplotlib.pyplot as plt
@@ -431,40 +454,37 @@ class BicycleModel:
 
 class _Graphed:
     """``fn(*args)`` (trees of tensors) replayed as a CUDA graph on static
-    copies of ``args``: captured at the first call and again when an
-    argument's shape or dtype, or an object of ``key``, changes.  ``key``
-    names by identity everything else the step reads (the path, the
-    configs, the grid's geometry); the graph holds it while it lives, so
-    the tensors whose addresses the capture baked in stay alive.  A call
-    copies ``args`` into the copies, replays and returns the graph's own
-    outputs, which the next call rewrites; a call that captures returns
-    its warm-up's result, the step run eagerly.  ``prepare(*copies)``
-    runs once before each capture (set-up that must not run inside the
-    warm-up's sync check)."""
+    copies of ``args`` (a :class:`~.utils.graphs.Entry`): captured at the
+    first call and again when an argument's shape or dtype, or an object
+    of ``key``, changes.  ``key`` names by identity everything else the
+    step reads (the path, the configs, the grid's geometry); the graph
+    holds it while it lives, so the tensors whose addresses the capture
+    baked in stay alive.  A call copies ``args`` in, replays and returns
+    the graph's own outputs, which the next call rewrites; a call that
+    captures returns its warm-up's result, the step run eagerly.
+    ``prepare(*copies)`` runs once before each capture (set-up that must
+    not run inside the warm-up's sync check)."""
 
     def __init__(self, fn):
         self.fn = fn
-        self.key = self.copies = self.graph = None
+        self.key = self.entry = None
 
     def __call__(self, key, prepare, *args):
-        flat = leaves(args)
-        layout = [(x.shape, x.dtype) for x in flat]
-        if self.graph is None or layout != self.key[1] or len(key) != len(
+        layout = [(x.shape, x.dtype) for x in leaves(args)]
+        if self.entry is None or layout != self.key[1] or len(key) != len(
                 self.key[0]) or any(a is not b for a, b in zip(key, self.key[0])):
-            self.graph = None  # frees the old graph's memory pool first
-            self.copies = [x.clone(memory_format=torch.contiguous_format)
-                           for x in flat]
-            static = rebuild(args, self.copies)
+            self.entry = None  # frees the old graph's memory pool first
+            entry = graphs.Entry(args)
             if prepare is not None:
-                prepare(*static)
-            step = lambda: self.fn(*static)
-            self.graph = graphs.StepGraph(step, warmup=step)
-            self.key = (tuple(key), layout)
-            return self.graph.first
-        for buf, x in zip(self.copies, flat):
-            buf.copy_(x)
-        self.graph.replay()
-        return self.graph.out
+                prepare(*entry.args)
+            step = lambda: self.fn(*entry.args)
+            graph = entry.capture(step, warmup=step)
+            self.entry, self.key = entry, (tuple(key), layout)
+            return graph.first
+        self.entry.copy_in(args)
+        graph, = self.entry.graphs
+        graph.replay()
+        return graph.out
 
 
 def _diag(M, n):

@@ -7,9 +7,12 @@ sets of static buffers, step ``t`` reads one set and writes the other, and
 writes its log row into preallocated (T, B) logs at a device-side step
 counter.  On the card the step is captured once per buffer set as a CUDA
 graph (:mod:`.utils.graphs`) and replayed ``sim.max_steps`` times with no
-Python between the steps; on the CPU, and for a rollout that all-reduces
-over a gloo group, the same form runs eagerly.  Logs, final states and
-kernel launches are the same either way, bit for bit.
+Python between the steps; the graphs are cached, as ``jax.jit`` caches
+the JAX package's compiled rollouts, so a later call of the same
+configuration and shapes copies its fresh inputs in and only replays.
+On the CPU, and for a rollout that all-reduces over a gloo group, the
+same form runs eagerly.  Logs, final states and kernel launches are the
+same either way, bit for bit.
 
 * static grid: free segments and the windowed horizon table are built once
   per rollout; every step goes through the table, kernel K2 and kernel K1;
@@ -28,7 +31,6 @@ kernel launches are the same either way, bit for bit.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -60,7 +62,7 @@ from multi_purpose_mpc_tpu_torch.ops.mapping import (
     pack_rows, unpack_rows, writeback_extract, writeback_extract_packed)
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
 from multi_purpose_mpc_tpu_torch.utils import graphs
-from multi_purpose_mpc_tpu_torch.utils.tree import leaves, rebuild
+from multi_purpose_mpc_tpu_torch.utils.tree import leaves, signature, tree_map
 
 
 class SimLog(NamedTuple):
@@ -126,21 +128,24 @@ def simulate_fleet(grid: GridMap, path: PathData, cfg: MPCConfig,
     if sim.static_grid:
         if table is None:
             table = static_horizon_table(grid, path, cfg, model)
-        step = lambda st, _: _post_control(
-            mpc_step_batched(st, path, cfg, model, table, weights=weights),
-            path, model)
-        return SimResult(*_rollout(step, state0, sim.max_steps))
+        step = lambda st, _, x: _post_control(
+            mpc_step_batched(st, x["path"], cfg, model, x["table"],
+                             weights=x["weights"]), x["path"], model)
+        return SimResult(*_rollout(
+            step, state0, sim.max_steps,
+            inputs=dict(path=path, table=table, weights=weights),
+            key=("fleet, static grid", cfg, model)))
     if table is None:
         table = build_scanline_table(grid, path, cfg.n_scan_samples)
     return _simulate_fleet_dynamic(grid, path, cfg, model, sim, state0, table,
                                    weights)
 
 
-def _rollout(sim_step, carry0, steps: int, group=None):
-    """``steps`` applications of ``sim_step(carry, dst) -> (carry, log)``
-    from ``carry0`` (a tree: a :class:`CarState`, or a tuple of it and
-    the maps); returns ``(final carry, logs)``, the logs a tree like the
-    step's (a :class:`SimLog`) with a leading time axis.
+def _rollout(sim_step, carry0, steps: int, group=None, inputs=(), key=()):
+    """``steps`` applications of ``sim_step(carry, dst, inputs) -> (carry,
+    log)`` from ``carry0`` (a tree: a :class:`CarState`, or a tuple of it
+    and the maps); returns ``(final carry, logs)``, the logs a tree like
+    the step's (a :class:`SimLog`) with a leading time axis.
 
     The carry lives in two sets of static buffers; step ``t`` reads set
     ``t % 2`` and its result is copied into the other set, so a new leaf
@@ -150,66 +155,46 @@ def _rollout(sim_step, carry0, steps: int, group=None):
     tensor, which is then not copied.  A step keeps every leaf's shape
     and dtype, as ``lax.scan``'s carry does.
 
+    ``inputs``: every tensor the step reads besides the carry (a tree:
+    the path, tables, grids, weights), handed to it as copies, as
+    ``jax.jit`` traces its non-static arguments; the step reads no tensor
+    from a closure.  ``key``: everything else the step reads (a name for
+    the step, its configs by value, the backends), hashable.
+
     Captured as CUDA graphs (one per buffer set, sharing a memory pool)
     under :func:`~.utils.graphs.should_capture` of the carry's device and
     ``group``: on the card unless ``group`` is a gloo group, whose
-    all-reduce goes through the host; eager otherwise.  The first step
-    runs eagerly as the graphs' warm-up and the other ``steps - 1``
-    replay them (a one-step rollout captures nothing)."""
+    all-reduce goes through the host; eager otherwise, and for one step.
+    The graphs are cached (:data:`~.utils.graphs.rollout_cache`) under
+    ``key``, ``steps``, ``group`` and the shapes, dtypes and devices of
+    ``carry0`` and ``inputs``.  The first call runs its first step
+    eagerly as the warm-up, captures and replays the graphs for the other
+    ``steps - 1``; a later call with the same key copies its ``carry0``
+    and ``inputs`` in and replays all ``steps``.  A graphed call returns
+    copies: the entry's buffers belong to its next call."""
     if steps < 1:
         raise ValueError(f"a rollout takes at least one step, got {steps}")
-    first = leaves(carry0)
-    dev = first[0].device
-    bufs = ([x.clone(memory_format=torch.contiguous_format) for x in first],
-            [torch.empty_like(x, memory_format=torch.contiguous_format)
-             for x in first])
-    t = torch.zeros((), dtype=torch.int64, device=dev)
-    logs, log_like = [], []
-    graphed = steps > 1 and graphs.should_capture(dev, group)
-    # the logs outlive the warm-up's side stream: they are made on the
-    # caller's
-    logs_stream = (torch.cuda.stream(torch.cuda.current_stream(dev))
-                   if graphed else contextlib.nullcontext())
-
-    def step(parity: int):
-        src, dst = bufs[parity], bufs[1 - parity]
-        new, log = sim_step(rebuild(carry0, src), rebuild(carry0, dst))
-        if not logs:
-            log_like.append(log)
-            with logs_stream:
-                logs.extend(torch.empty((steps,) + tuple(f.shape),
-                                        dtype=f.dtype, device=f.device)
-                            for f in leaves(log))
-        for buf, row in zip(logs, leaves(log)):
-            buf.index_copy_(0, t, row.unsqueeze(0))
-        t.add_(1)
-        _copy_carry(leaves(new), dst)
-
-    if graphed:
-        g1 = graphs.StepGraph(lambda: step(1), warmup=lambda: step(0))
-        pair = (graphs.StepGraph(lambda: step(0), pool=g1.pool())
-                if steps > 2 else None, g1)
-        for i in range(1, steps):
-            pair[i % 2].replay()
-    else:
+    dev = leaves(carry0)[0].device
+    if steps == 1 or not graphs.should_capture(dev, group):
+        entry = graphs.RolloutEntry(carry0, inputs, steps)
         for i in range(steps):
-            step(i % 2)
-    return rebuild(carry0, bufs[steps % 2]), rebuild(log_like[0], logs)
-
-
-def _copy_carry(new, dst) -> None:
-    """Copy a step's new carry leaves into the buffer set ``dst``."""
-    if len(new) != len(dst):
-        raise ValueError(f"a step returned {len(new)} carry leaves for "
-                         f"{len(dst)}")
-    for n, d in zip(new, dst):
-        if n.shape != d.shape or n.dtype != d.dtype:
-            raise ValueError(
-                f"a step must keep its carry's shapes and dtypes: "
-                f"{tuple(d.shape)} {d.dtype} became {tuple(n.shape)} "
-                f"{n.dtype}")
-        if n is not d:
-            d.copy_(n)
+            entry.step(sim_step, i % 2)
+        return entry.result()
+    full_key = (tuple(key), steps, None if group is None else id(group),
+                signature((carry0, inputs)))
+    entry = graphs.rollout_cache.get(dev, full_key)
+    if entry is None:
+        entry = graphs.RolloutEntry(carry0, inputs, steps, group)
+        entry.capture_pair(sim_step)
+        graphs.rollout_cache.put(dev, full_key, entry)
+        first = 1
+    else:
+        entry.copy_in((carry0, inputs))
+        entry.t.zero_()
+        first = 0
+    for i in range(first, steps):
+        entry.pair[i % 2].replay()
+    return tree_map(torch.clone, entry.result())
 
 
 def _validate_weights(weights: Optional[WeightSet], state0: CarState) -> None:
@@ -237,9 +222,14 @@ def _simulate_fleet_dynamic(grid: GridMap, path: PathData, cfg: MPCConfig,
     from each step's extraction."""
     base = build_horizon_table(
         path, empty_segments(path.n_wp, cfg.max_segments, path.x.device), cfg)
-    step = lambda st, _: _sim_step_batched_gridded(st, path, grid.occ, cfg,
-                                                   model, scan, base, weights)
-    return SimResult(*_rollout(step, state0, sim.max_steps))
+    step = lambda st, _, x: _sim_step_batched_gridded(
+        st, x["path"], x["occ"], cfg, model, x["scan"], x["base"],
+        x["weights"])
+    return SimResult(*_rollout(
+        step, state0, sim.max_steps,
+        inputs=dict(path=path, occ=grid.occ, scan=scan, base=base,
+                    weights=weights),
+        key=("fleet, dynamic grid", cfg, model)))
 
 
 def _locate_horizon(state: CarState, path: PathData, cfg: MPCConfig):
@@ -407,11 +397,11 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
                          "shared_grid=True; per-lane maps shard with their "
                          "lanes")
     dev = known_grid.device
+    # the known map's geometry: a resumed (B, H, W) stack's from its frame
+    frame = known_grid
+    if known_grid.occ.dim() == 3:
+        frame = dataclasses.replace(known_grid, occ=known_grid.occ[0])
     if table is None:
-        # pure geometry: a resumed (B, H, W) stack builds from its frame
-        frame = known_grid
-        if known_grid.occ.dim() == 3:
-            frame = dataclasses.replace(known_grid, occ=known_grid.occ[0])
         table = build_scanline_table(frame, path, cfg.n_scan_samples)
     scan_backend, writeback_backend = resolve_lidar_backends(
         shared_grid, clear_free, scan_backend, writeback_backend,
@@ -423,6 +413,12 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
         path, empty_segments(path.n_wp, cfg.max_segments, path.x.device), cfg)
     H, W = known_grid.occ.shape[-2:]
     sm = model.safety_margin
+    # the step's tensors: of the known map only its frame (the maps are
+    # the carry)
+    inputs = dict(true=true_grid, cells=cells, frame=frame, path=path,
+                  table=table, base=base, weights=weights)
+    key = ("LiDAR fleet", cfg, model, lidar, scan_backend, writeback_backend,
+           clear_free, shared_grid, H, W)
 
     def lanes(occ):
         """The map carry: per-lane maps from a 2-D frame (the rollout
@@ -431,62 +427,67 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
         return occ.expand(B, -1, -1) if not shared_grid and occ.dim() == 2 \
             else occ
 
-    def scans_of(st):
-        return scan_fleet(true_grid, st.x, st.y, st.psi, lidar, cells=cells,
-                          backend=scan_backend, wp_id=st.wp_id)
+    def scans_of(st, x):
+        return scan_fleet(x["true"], st.x, st.y, st.psi, lidar,
+                          cells=x["cells"], backend=scan_backend,
+                          wp_id=st.wp_id)
 
     if writeback_backend in ("fused", "packed"):
         packed = writeback_backend == "packed"
         fused = writeback_extract_packed if packed else writeback_extract
 
-        def step(carry, dst):
+        def step(carry, dst, x):
             # the kernel writes the new maps straight into the other
             # buffer set: two maps ping-pong, none is copied
             st, occ = carry
+            path = x["path"]
             located, idx = _locate_horizon(st, path, cfg)
-            h = horizon_tables(table, idx)
-            scans = scans_of(st)
-            hpx, hpy = hit_pixels(known_grid, scans, H, W)
+            h = horizon_tables(x["table"], idx)
+            scans = scans_of(st, x)
+            hpx, hpy = hit_pixels(x["frame"], scans, H, W)
             occ, vals = fused(occ, hpx.contiguous(), hpy.contiguous(),
                               scans.hit.contiguous(), h.px, h.py, out=dst[1])
             segs = horizon_segments(vals, h, 2.0 * sm, cfg.max_segments)
-            corridor, blk = _select_corridor_batched(base, located[0], segs,
-                                                     cfg, sm)
+            corridor, blk = _select_corridor_batched(x["base"], located[0],
+                                                     segs, cfg, sm)
             out = mpc_step_batched_with_corridor(
                 st, cfg, model, located, corridor,
                 solver_inputs_from_block(blk, cfg.max_segments),
-                weights=weights)
+                weights=x["weights"])
             st, log = _post_control(out, path, model)
             return (st, occ), log
 
         occ = known_grid.occ
         (st, occ), log = _rollout(
             step, (state0, lanes(pack_rows(occ) if packed else occ)),
-            sim.max_steps)
+            sim.max_steps, inputs=inputs, key=key)
         return SimResult(st, log), unpack_rows(occ, H) if packed else occ
 
-    def step(carry, _):
+    def step(carry, _, x):
         st, occ = carry
-        scans = scans_of(st)
+        scans = scans_of(st, x)
+        frame = x["frame"]
         if group is not None:
-            masks = fleet_observation_masks(known_grid, H, W, st.x, st.y,
-                                            st.psi, scans, lidar,
+            masks = fleet_observation_masks(frame, H, W, st.x, st.y, st.psi,
+                                            scans, lidar,
                                             clear_free=clear_free, shared=True)
             occ = apply_observation_masks(
                 occ, *pool_observation_masks(*masks, group))
         elif writeback_backend == "dense":
-            occ = fleet_writeback(known_grid, occ, st.x, st.y, st.psi, scans,
+            occ = fleet_writeback(frame, occ, st.x, st.y, st.psi, scans,
                                   lidar, clear_free=clear_free,
                                   shared=shared_grid)
         else:
-            scatter_writeback_(known_grid, occ, st.x, st.y, st.psi, scans,
+            scatter_writeback_(frame, occ, st.x, st.y, st.psi, scans,
                                clear_free=clear_free, shared=shared_grid)
-        st, log = _sim_step_batched_gridded(st, path, occ, cfg, model, table,
-                                            base, weights)
+        st, log = _sim_step_batched_gridded(st, x["path"], occ, cfg, model,
+                                            x["table"], x["base"],
+                                            x["weights"])
         return (st, occ), log
 
     (st, occ), log = _rollout(step, (state0, lanes(known_grid.occ)),
-                              sim.max_steps, group=group)
+                              sim.max_steps, group=group, inputs=inputs,
+                              key=key)
     return SimResult(st, log), occ
 
 

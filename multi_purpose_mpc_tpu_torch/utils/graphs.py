@@ -3,8 +3,8 @@ package's ``jax.jit`` (of a rollout's ``lax.scan`` body, of the object
 API's control step).
 
 A step that reads and writes only static tensors — buffers made before
-the capture, and setup tensors (tables, paths, grids) that outlive the
-graph — runs its first application eagerly on a side stream (the
+the capture, static copies of its inputs (:class:`Entry`) and constants
+that outlive the graph — runs its first application eagerly on a side stream (the
 warm-up: it builds and loads the kernels, runs their
 ``cudaFuncSetAttribute`` and fills the per-path caches) under
 ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync in the
@@ -30,10 +30,21 @@ The capture rule (:func:`should_capture`): a step on a CUDA device is
 captured, unless :func:`disable_capture` is active or the step
 all-reduces over a gloo process group (gloo goes through the host, which
 a graph cannot hold; NCCL collectives are captured).
+
+:class:`Entry` owns static copies of a step's tensor inputs and the
+graphs captured on them: a call copies its inputs in and replays.  A
+rollout's :class:`RolloutEntry` adds the carry's second buffer set, the
+(T, B) logs and the step counter, and lives in :data:`rollout_cache`
+(:class:`GraphCache`), the counterpart of ``jax.jit``'s compile cache:
+one entry per step, static configuration, step count and layout,
+captured at the first call and replayed by every later call with fresh
+inputs of the same shapes.  :func:`clear_cache` empties it, as
+``jax.clear_caches`` does.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -43,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from multi_purpose_mpc_tpu_torch.utils import kernels
+from multi_purpose_mpc_tpu_torch.utils.tree import leaves, rebuild
 
 # .disabled: depth of disable_capture() blocks; .records: the lists that
 # capture_seconds() blocks fill
@@ -173,3 +185,157 @@ class StepGraph:
     def replay(self) -> None:
         self.graph.replay()
         kernels.add_launches(self.launches)
+
+
+class Entry:
+    """Static copies of ``args`` (a tree of tensors) and the graphs
+    captured on them (:meth:`capture`; they share the first one's memory
+    pool, being replayed one after the other on one stream).  A call
+    copies its own arguments in (:meth:`copy_in`) and replays: what a
+    graph reads must come from :attr:`args` or outlive the entry, since a
+    tensor read from anywhere else is baked in at the capture."""
+
+    def __init__(self, args):
+        self._flat = [x.clone(memory_format=torch.contiguous_format)
+                      for x in leaves(args)]
+        self.args = rebuild(args, self._flat)
+        self.graphs = []
+
+    def copy_in(self, args) -> None:
+        new = leaves(args)
+        if len(new) != len(self._flat):
+            raise ValueError(f"{len(new)} leaves for an entry of "
+                             f"{len(self._flat)}")
+        for buf, x in zip(self._flat, new):
+            buf.copy_(x)
+
+    def capture(self, fn: Callable, warmup: Optional[Callable] = None):
+        """A :class:`StepGraph` of ``fn`` (after ``warmup``), kept here."""
+        pool = self.graphs[0].pool() if self.graphs else None
+        g = StepGraph(fn, warmup=warmup, pool=pool)
+        self.graphs.append(g)
+        return g
+
+
+class RolloutEntry(Entry):
+    """A rollout of ``steps`` steps: ``args = (carry0, inputs)`` copied
+    in (the carry's buffer set 0 and the step's inputs), buffer set 1, the
+    (T, B) logs (made at the first step) and the device step counter
+    ``t``.
+    :meth:`step` applies ``sim_step(carry, dst, inputs) -> (carry, log)``
+    once: it reads set ``parity``, writes its log row at ``t`` and its
+    new carry into the other set.  ``group``: the process group the step
+    all-reduces over, held so that its identity, part of the cache key,
+    is not reused while the entry lives."""
+
+    def __init__(self, carry0, inputs, steps: int, group=None):
+        super().__init__((carry0, inputs))
+        self.steps = steps
+        carry = leaves(self.args[0])
+        dev = carry[0].device
+        self.bufs = (carry, [torch.empty_like(x) for x in carry])
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.logs = self.log_tree = self.pair = None
+        self.group = group
+        # the logs outlive the warm-up's side stream: they are made on
+        # the caller's
+        self._home = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                      else None)
+
+    def step(self, sim_step: Callable, parity: int) -> None:
+        src, dst = self.bufs[parity], self.bufs[1 - parity]
+        like = self.args[0]
+        new, log = sim_step(rebuild(like, src), rebuild(like, dst),
+                            self.args[1])
+        rows = leaves(log)
+        if self.logs is None:
+            with (torch.cuda.stream(self._home) if self._home is not None
+                  else contextlib.nullcontext()):
+                self.logs = [torch.empty((self.steps,) + tuple(f.shape),
+                                         dtype=f.dtype, device=f.device)
+                             for f in rows]
+            self.log_tree = rebuild(log, self.logs)
+        for buf, row in zip(self.logs, rows):
+            buf.index_copy_(0, self.t, row.unsqueeze(0))
+        self.t.add_(1)
+        _copy_carry(leaves(new), dst)
+
+    def capture_pair(self, sim_step: Callable) -> None:
+        """Run step 0 eagerly (the warm-up, a real step) and capture the
+        step on each buffer set: ``pair[p]`` reads set ``p``."""
+        g1 = self.capture(lambda: self.step(sim_step, 1),
+                          warmup=lambda: self.step(sim_step, 0))
+        self.pair = (self.capture(lambda: self.step(sim_step, 0)), g1)
+
+    def result(self):
+        """``(final carry, logs)`` after the rollout's steps: views of the
+        entry's buffers, which its next call rewrites."""
+        return (rebuild(self.args[0], self.bufs[self.steps % 2]),
+                self.log_tree)
+
+
+def _copy_carry(new, dst) -> None:
+    """Copy a step's new carry leaves into the buffer set ``dst``."""
+    if len(new) != len(dst):
+        raise ValueError(f"a step returned {len(new)} carry leaves for "
+                         f"{len(dst)}")
+    for n, d in zip(new, dst):
+        if n.shape != d.shape or n.dtype != d.dtype:
+            raise ValueError(
+                f"a step must keep its carry's shapes and dtypes: "
+                f"{tuple(d.shape)} {d.dtype} became {tuple(n.shape)} "
+                f"{n.dtype}")
+        if n is not d:
+            d.copy_(n)
+
+
+# entries a device: the largest rollout of chip_smoke.py, the LiDAR fleet
+# at B = 4096, peaks at 8.1-8.3 GiB above what its caller holds, most of
+# it its graphs' pool, which stays resident while its entry is cached
+# (PERF.md section 5, NVIDIA H100 80GB HBM3 at 700 W); four such entries
+# hold some 33 GiB, under half of an 80 GB card, and a Monte-Carlo loop
+# or a sweep over a few configurations reuses at most a few entries
+CACHE_SIZE = 4
+
+
+class GraphCache:
+    """Least-recently-used :class:`Entry` objects by key, at most
+    :data:`CACHE_SIZE` a device.  Evicting an entry drops its graphs and
+    buffers: its memory pool goes back to the allocator's cache, as any
+    freed tensor's does, until ``torch.cuda.empty_cache()``."""
+
+    def __init__(self):
+        self._devices: dict = {}
+
+    def get(self, device, key):
+        lru = self._devices.get(torch.device(device))
+        entry = None if lru is None else lru.get(key)
+        if entry is not None:
+            lru.move_to_end(key)
+        return entry
+
+    def put(self, device, key, entry) -> None:
+        lru = self._devices.setdefault(torch.device(device),
+                                       collections.OrderedDict())
+        lru[key] = entry
+        lru.move_to_end(key)
+        while len(lru) > CACHE_SIZE:
+            lru.popitem(last=False)
+
+    def clear(self) -> None:
+        self._devices.clear()
+
+    def __len__(self) -> int:
+        return sum(len(lru) for lru in self._devices.values())
+
+
+# the rollouts' cache (simulation._rollout)
+rollout_cache = GraphCache()
+
+
+def clear_cache() -> None:
+    """Drop every cached rollout graph (the counterpart of
+    ``jax.clear_caches``); the next call of each rollout captures anew.
+    Call it before destroying a process group whose all-reduce a cached
+    graph holds, to free that graph with its communicator."""
+    rollout_cache.clear()

@@ -72,6 +72,25 @@ def rebuild(like, new_leaves) -> object:
     return out
 
 
+def signature(tree):
+    """A hashable description of ``tree``, equal for two trees exactly
+    when they have the same structure, leaves of the same shape, dtype
+    and device, and the same other values (``PathData.circular``, None):
+    what a CUDA graph of a step on ``tree`` bakes in besides the leaves'
+    values."""
+    if _is_leaf(tree):
+        return (type(tree), tuple(tree.shape), tree.dtype,
+                getattr(tree, "device", None))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return (type(tree), tuple((f.name, signature(getattr(tree, f.name)))
+                                  for f in dataclasses.fields(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(signature(v) for v in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, signature(tree[k])) for k in sorted(tree)))
+    return tree
+
+
 def tree_map(fn: Callable, tree):
     """``tree`` with ``fn`` applied to every leaf."""
     return rebuild(tree, [fn(x) for x in leaves(tree)])

@@ -174,18 +174,25 @@ def test_torch_save_checkpoint_roundtrip(sc, tmp_path):
 
 def test_scan_marginal_cost_orders_ops():
     """A matmul costs more per iteration than an elementwise add; both
-    finite and >= 0 (tests/test_utils.py:52-70; 512 x 512 so that the
-    matmul's cost stands well above the CPU's timing noise)."""
-    a = torch.ones((512, 512))
+    finite and >= 0 (tests/test_utils.py:52-70).  On one thread, so that
+    other processes on the machine cannot stall a thread pool's barrier
+    inside the add's window; at 1024 x 1024 the two matmuls (2.1e9
+    multiply-adds) cost some 40 times the add (1.0e6 elements)."""
+    a = torch.ones((1024, 1024))
 
     def perturb(args, i):
         (x,) = args
         return (x + (i % 2) * 1e-6,)
 
-    t_mm = scan_marginal_cost(lambda x: (x @ x) @ x, (a,), perturb,
-                              steps=16, repeats=3)
-    t_add = scan_marginal_cost(lambda x: x + 1.0, (a,), perturb, steps=16,
-                               repeats=3)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t_mm = scan_marginal_cost(lambda x: (x @ x) @ x, (a,), perturb,
+                                  steps=16, repeats=3)
+        t_add = scan_marginal_cost(lambda x: x + 1.0, (a,), perturb,
+                                   steps=16, repeats=3)
+    finally:
+        torch.set_num_threads(threads)
     assert np.isfinite(t_mm) and np.isfinite(t_add)
     assert t_mm >= 0.0 and t_add >= 0.0
     assert t_mm > t_add

@@ -800,6 +800,52 @@ def test_fleet_graph_equals_eager(cuda_sc, grid_kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid_kind", ["static", "dynamic"])
+def test_fleet_cache_hit_with_fresh_inputs_equals_eager(cuda_sc, grid_kind):
+    """B = 256 x 5 steps, twice: the second call, on another fleet, speed
+    profile and grid (one more obstacle) of the same shapes, replays the
+    first call's cached graphs and captures none; its logs and final
+    state bitwise equal to the eager form on its own inputs, the same
+    launches, and the first call's result untouched by it."""
+    from multi_purpose_mpc_tpu_torch.config import SpeedProfileConstraints
+    from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds
+    from multi_purpose_mpc_tpu_torch.utils.tree import tree_map
+
+    sc, T = cuda_sc, 5
+    static = grid_kind == "static"
+    sim = SimConfig(max_steps=T, static_grid=static)
+    map_cfg = sim_track_preset(ASSETS)[0]
+    path = sc["path"]
+    grid2 = add_obstacles_host(sc["grid"], map_cfg.origin, map_cfg.resolution,
+                               [(float(path.x[60]), float(path.y[60]), 0.02)])
+    path2 = compute_speed_profile(path, SpeedProfileConstraints(v_max=0.8))
+    rng = np.random.default_rng(1)
+    B, dev = sc["fleet"].batch, sc["grid"].device
+    fleet2 = init_fleet(
+        path2, sc["cfg"].N, B,
+        e_y0=torch.tensor(rng.uniform(-0.06, 0.06, B), dtype=torch.float32,
+                          device=dev),
+        wp_id0=torch.tensor(rng.integers(0, path.n_wp, B), dtype=torch.int32,
+                            device=dev))
+    run = lambda g, p, f: simulate_fleet(
+        g, p, sc["cfg"], sc["model"], sim, f,
+        table=static_horizon_table(g, p, sc["cfg"], sc["model"])
+        if static else None)
+    graphs.clear_cache()
+    with capture_seconds() as caps1:
+        first = run(sc["grid"], path, sc["fleet"])
+    kept = tree_map(torch.clone, first)
+    with capture_seconds() as caps2:
+        (second, n2), (want, ne) = _graph_and_eager(
+            lambda: run(grid2, path2, fleet2))
+    assert len(caps1) == 2 and len(caps2) == 0
+    _assert_same_tree(second, want)
+    _assert_same_tree(first, kept)
+    assert n2 == ne and n2["corridor_select"] == T
+    assert not torch.equal(first.log.x, second.log.x)
+
+
+@pytest.mark.cuda
 def test_packed_lidar_fleet_graph_equals_eager(cuda_sc):
     """The discovery fleet (cells scan, K6 ping-ponging two map buffers):
     logs, final state and maps bitwise, K6 = K2 = K1 once a step."""
@@ -902,7 +948,7 @@ def test_capture_of_a_syncing_step_raises(cuda_device):
     from multi_purpose_mpc_tpu_torch import simulation as tsim
 
     carry = (torch.zeros(4, device=cuda_device),)
-    step = lambda c, _: ((c[0] + float(c[0].sum().item()),), (c[0],))
+    step = lambda c, _, __: ((c[0] + float(c[0].sum().item()),), (c[0],))
     with pytest.raises(RuntimeError):
         tsim._rollout(step, carry, 3)
     with graphs.disable_capture():

@@ -153,7 +153,7 @@ def test_copy_back_survives_aliased_leaves():
         x, y, z = carry
         return (y.t(), x, z + x[0]), (x.sum(1), (y[:, 0] > 0))
 
-    def step(carry, dst):
+    def step(carry, dst, _):
         x, y, z = carry
         (nx, ny, _), log = new_carry(carry)
         return (nx, ny, torch.add(z, x[0], out=dst[2])), log
@@ -162,8 +162,8 @@ def test_copy_back_survives_aliased_leaves():
     got = tsim._rollout(step, carry0, 5)
     _assert_bitwise(got, want)
     with pytest.raises(ValueError, match="shapes and dtypes"):
-        tsim._rollout(lambda c, _: ((c[0], c[1], c[2].double()),
-                                    (c[2],)), carry0, 2)
+        tsim._rollout(lambda c, _, __: ((c[0], c[1], c[2].double()),
+                                        (c[2],)), carry0, 2)
 
 
 @pytest.fixture
@@ -203,6 +203,9 @@ class _EagerGraph:
         self.fn, self.first = fn, warmup() if warmup is not None else None
         _EagerGraph.made += 1
 
+    def pool(self):
+        return None
+
     def replay(self):
         self.out = self.fn()
 
@@ -210,8 +213,9 @@ class _EagerGraph:
 def test_get_control_recaptures_when_its_inputs_are_replaced(monkeypatch):
     """``MPC.get_control`` captures again when the path (a new speed
     profile), the controller's config or the model's config is replaced,
-    and only replays when the map's occupancy changes; each step's control
-    and prediction equal the eager loop's bit for bit."""
+    and only replays when the map's occupancy changes; ``drive`` captures
+    again when the path is replaced; each step's control and prediction
+    equal the eager loop's bit for bit."""
     from multi_purpose_mpc_tpu_torch import api as tapi
     from tests.test_torch_api import OBSTACLES, SPEED, _controller, _map
 
@@ -241,7 +245,8 @@ def test_get_control_recaptures_when_its_inputs_are_replaced(monkeypatch):
     monkeypatch.setattr(graphs, "should_capture", lambda *a, **k: True)
     monkeypatch.setattr(graphs, "StepGraph", _EagerGraph)
     graphed, made = loop()
-    assert made == [1, 1, 2, 3]
+    # graphs made so far: get_control's 1, 1, 2, 3 and drive's 1, 1, 2, 2
+    assert made == [2, 2, 4, 5]
     np.testing.assert_array_equal(graphed, eager)
 
 

@@ -54,7 +54,7 @@ from multi_purpose_mpc_tpu_torch.parallel.mesh import (  # noqa: E402
     fleet_metrics, global_fleet_mesh, init_distributed, lane_block)
 from multi_purpose_mpc_tpu_torch.simulation import (  # noqa: E402
     feasible_starts, init_fleet, simulate_fleet, simulate_lidar_fleet)
-from multi_purpose_mpc_tpu_torch.utils import kernels  # noqa: E402
+from multi_purpose_mpc_tpu_torch.utils import graphs, kernels  # noqa: E402
 from multi_purpose_mpc_tpu_torch.utils.profiling import capture_seconds  # noqa: E402
 from multi_purpose_mpc_tpu_torch.utils.maps import (  # noqa: E402
     add_obstacles_host, load_grid_map)
@@ -214,6 +214,7 @@ def main():
         for line in lines:
             print(f"{line} on {card()}", flush=True)
         print("sharded fleet check: ok", flush=True)
+    graphs.clear_cache()  # the cached graphs hold the group's all-reduce
     dist.destroy_process_group()
 
 
