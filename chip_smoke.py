@@ -224,6 +224,10 @@ CR_ACCEPT_AGREE = 0.95
 CR_V = (1e-3, 0.85, 2e-4, 1e-1)  # tight bar, its share, median, band
 CR_U0_TOL = 3e-3
 N31 = 31
+# the CR fleet's first call (accept, solver-failure, failed lanes, max
+# |e_y|) as the CR kernels of the earlier design gave it (PERF.md section
+# 6): the redesigned kernels keep every bit, so these stay to the digit
+CR_FLEET_BEFORE = ("0.9755", "0.01054", 0, "0.1432")
 # phase 16's bars, set from its first run on the card (0 failed lanes, max
 # |e_y| 0.4344 m; PERF.md section 6).  From an all-free known map the exact
 # corner-span scan marks corner-grazing cells at pinch points, corridors
@@ -2077,7 +2081,8 @@ def main():
         """``{B: (ms, bound)}`` of the CR kernel on the first B lanes of
         ``args``, timed in turns with the Schur kernel on ``schur_args``
         (CR, Schur, Schur, CR; each time the mean of its two), printed as
-        one line."""
+        one line with the lane's shared memory, the lanes a block and the
+        lanes resident per SM."""
         rows, line = {}, []
         for n in SCALING_B:
             a = [first_lanes(x, n) for x in args]
@@ -2088,8 +2093,13 @@ def main():
                                     count_ops(lambda: plain(*a))))
             line.append(f"B={n}: {cr_ms:.4f} (Schur {schur_ms:.4f}; bound "
                         f"{rows[n][1][0]:.5f}, {rows[n][1][1]})")
+        lanes, per_sm = admm_cuda.occupancy(
+            "fused" if kernel == "K1-CR" else "structured", cfg.N, True)
         print(f"[{kernel} scaling] N={cfg.N}, kernel ms per batch: "
-              + ", ".join(line) + f" ({card})", flush=True)
+              + ", ".join(line) + f"; a lane "
+              f"{admm_cuda.lane_smem_bytes(cfg.N, True)} B of shared "
+              f"memory, {lanes} lanes a block, {per_sm} lanes resident per "
+              f"SM ({card})", flush=True)
         return rows
 
     k1cr_rows = cr_scaling("K1-CR", admm_cuda.solve_mpc_qp_fused_cuda,
@@ -2127,6 +2137,18 @@ def main():
           f"{h_cr['solver_fail']:.5f}; Schur fleet (phase 5) accept "
           f"{h_s['accept']:.4f}, solver-failure {h_s['solver_fail']:.5f} on "
           f"{card}", flush=True)
+    # the CR results are bitwise those of the kernels' earlier design, so
+    # the fleet's first call reads as it did then (same seed)
+    got = (f"{h_cr['accept']:.4f}", f"{h_cr['solver_fail']:.5f}",
+           h_cr["failed"], f"{h_cr['max_ey']:.4f}")
+    was = CR_FLEET_BEFORE
+    print(f"[cr fleet] first call accept {got[0]}, solver-failure {got[1]}, "
+          f"failed lanes {got[2]}, max|e_y| {got[3]}; earlier design accept "
+          f"{was[0]}, solver-failure {was[1]}, failed lanes {was[2]}, "
+          f"max|e_y| {was[3]}: {'equal' if got == was else 'DIFFERENT'}",
+          flush=True)
+    if got != was:
+        raise AssertionError(f"CR fleet moved: {got} against {was}")
     profile_steps(f"static grid, CR, B={B}", cr_run(10), 10, cr_ms,
                   cr_replay_ms, card,
                   {"admm_fused_kernel": "admm_fused_cr",

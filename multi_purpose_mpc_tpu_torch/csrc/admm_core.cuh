@@ -47,18 +47,40 @@
 // * CR = true: block cyclic reduction (cr_factor, cr_solve), the plain
 //   version ops/cyclic_reduction.py.  The stages are padded to
 //   M = 2^k - 1 >= S with identity blocks and zero couplings; each level
-//   inverts its even stages (thread t on even stages t, t + 32, ...), then
-//   builds the reduced blocks and couplings of its odd stages, which form
-//   the next level; a solve is the levels down, the last stage, and the
-//   levels up, each level parallel over its stages.  In place of C and
-//   Sinv the lane holds, per padded stage, 16-byte aligned Dinv [M][28]
-//   (the block, reduced in place, then its inverse), Ol [M][16] (the
-//   coupling to the left neighbour of the current level), Or [M][16] (an
-//   eliminated stage's coupling to its right neighbour), X [M][5] (the
-//   right-hand side, then the solution) and U [M][5] (the even stages'
-//   Dinv b).  These arrays are in elimination order (cr_slot): the stages
-//   one level eliminates lie side by side, so its threads read
-//   neighbouring slots.
+//   inverts its even stages, then builds the reduced blocks and couplings
+//   of its odd stages, which form the next level; a solve is the levels
+//   down, the last stage, and the levels up.
+//
+// CR layout.  The lane keeps the first 61 floats a stage of the Schur
+// layout (AB .. Yw; no V, no Vx), then, per padded stage in elimination
+// order (cr_slot: the stages one level eliminates lie side by side),
+// Dinv [M][25] (the block, reduced in place, then its inverse) and X [M][5]
+// (the ADMM right-hand side, written there by the iteration, then the
+// solution, read from there), then the couplings once per odd stage of
+// every level (P = M - log2(M + 1) of them, level l's from pair off_l - l,
+// off_l its first slot): OL [P][15] (the odd stage's coupling to its left
+// even neighbour, 3x5 row-major) and ORt [P][15] (the right even
+// neighbour's coupling to it, stored transposed, 5x3).  The factor writes
+// each odd stage's reduced coupling straight into the next level's pair,
+// so no coupling is copied or kept twice.  Strides 25, 15 and 5 are odd:
+// the scalar reads of the solve fall on distinct banks.
+//
+// CR work split.  Stage-parallel work as for Schur.  The factor gives one
+// thread a stage (the inverses and the odd stages' reductions, ~7 times a
+// solve).  The solve (~190 times a solve) spreads each level over the
+// warp.  A level of CR_WIDE or more even stages gives a thread a stage
+// (its five row sums independent, their latencies overlapped): down, a
+// round takes 32 even and 31 odd stages, U = Dinv x in registers and U_u+1
+// from the next thread by __shfl_down_sync; up, a thread solves its even
+// stage.  A narrower level gives a thread a (stage, row) pair: thread t is
+// row r = t % 5 of group g = t / 5 (6 groups, threads 30-31 idle); down, a
+// round takes even stages base .. base + 5 (one a group) and odd stages
+// base .. base + 4, each odd row taking the U rows it needs from its group
+// and the next by __shfl_sync, and the last level's odd stage, the last
+// stage, is solved in the same round; up, a round takes 6 even stages,
+// the rows of b handed round the group, then a row of Dinv b written over
+// the thread's own element of x.  U never reaches shared memory, and a
+// level needs one __syncwarp.
 
 #pragma once
 
@@ -83,10 +105,17 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int SCALARS = 69;  // floats a stage from AB to Vx (layout above)
 constexpr int C_STRIDE = 16;
 constexpr int SINV_STRIDE = 28;
-constexpr int CR_FLOATS = SINV_STRIDE + 2 * C_STRIDE + 2 * NW;  // a padded stage
+// CR: floats a stage from AB to Yw, and the strides of Dinv and of one
+// coupling (layout above)
+constexpr int CR_SCALARS = 61;
+constexpr int DINV_STRIDE = 25;
+constexpr int O_STRIDE = 15;
+constexpr int CR_GROUPS = 6;  // (stage, row) groups of the CR solve
+constexpr int CR_WIDE = 8;    // even stages from which a level takes stages
 // dynamic shared memory a block may take on Hopper (227 KB)
 constexpr int MAX_SMEM_BYTES = 232448;
-constexpr int MAX_LANES_PER_BLOCK = 4;
+constexpr int MAX_LANES_PER_BLOCK = 4;      // Schur
+constexpr int MAX_CR_LANES_PER_BLOCK = 16;  // CR: 512 threads, 128 registers
 
 // CR's padded stage count M: the least 2^k - 1 >= S
 // (cyclic_reduction.padded_stages).
@@ -96,17 +125,28 @@ __host__ __device__ inline int padded_stages(int S) {
   return m - 1;
 }
 
-// Floats of shared memory per lane with S stages; mirrored by
-// ops/admm_cuda.py (lane_smem_bytes), which derives N_MAX from it.
-__host__ __device__ inline int lane_floats(int S, bool cr) {
-  const int base = (SCALARS * S + 3) & ~3;
-  return cr ? (base + CR_FLOATS * padded_stages(S) + 3) & ~3
-            : base + (C_STRIDE + SINV_STRIDE) * S;
+// CR's odd stages over all levels, M - log2(M + 1): one coupling pair each.
+__host__ __device__ inline int cr_pairs(int M) {
+  int k = 0;
+  while ((1 << k) < M + 1) ++k;
+  return M - k;
 }
 
-// Lanes per block at horizon N (0: the lane does not fit).
-inline int lanes_per_block(int N, bool cr) {
-  const int bytes = lane_floats(N + 1, cr) * 4;
+// Floats of shared memory per lane with S stages; mirrored by
+// ops/admm_cuda.py (lane_smem_bytes), which derives N_MAX and N_MAX_CR
+// from it.
+__host__ __device__ inline int lane_floats(int S, bool cr) {
+  if (cr) {
+    const int M = padded_stages(S);
+    return (CR_SCALARS * S + (DINV_STRIDE + NW) * M
+            + 2 * O_STRIDE * cr_pairs(M) + 3) & ~3;
+  }
+  return ((SCALARS * S + 3) & ~3) + (C_STRIDE + SINV_STRIDE) * S;
+}
+
+// Schur's lanes per block at horizon N (0: the lane does not fit).
+inline int lanes_per_block(int N) {
+  const int bytes = lane_floats(N + 1, false) * 4;
   const int fit = MAX_SMEM_BYTES / bytes;
   return fit < MAX_LANES_PER_BLOCK ? fit : MAX_LANES_PER_BLOCK;
 }
@@ -130,11 +170,12 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One lane's shared-memory arrays and the thread's place in its warp
-// (C, Sinv: the Schur recursion; M, Dinv .. U: cyclic reduction).
+// (V, Vx, C, Sinv: the Schur recursion; M, Dinv, X, OL, ORt: cyclic
+// reduction).
 struct Lane {
-  int N, S, t, M;
+  int N, S, t, M, P;  // P: CR's coupling pairs
   float *AB, *beq, *Pd, *qv, *lw, *uw, *rho_w, *W, *Zw, *Yeq, *Yw, *V, *Vx,
-      *C, *Sinv, *Dinv, *Ol, *Or, *X, *U;
+      *C, *Sinv, *Dinv, *X, *OL, *ORt;
 };
 
 // The lane of warp `w` in the block's dynamic shared memory.
@@ -158,26 +199,27 @@ __device__ __forceinline__ Lane lane_at(float* smem, int w, int N) {
   L.Zw = p;      p += NW * S;
   L.Yeq = p;     p += NX * S;
   L.Yw = p;      p += NW * S;
-  L.V = p;       p += NW * S;
-  L.Vx = p;
-  p = smem + (size_t)w * lane_floats(S, CR) + ((SCALARS * S + 3) & ~3);
   if (CR) {
-    L.C = L.Sinv = nullptr;
-    L.Dinv = p;  p += SINV_STRIDE * L.M;
-    L.Ol = p;    p += C_STRIDE * L.M;
-    L.Or = p;    p += C_STRIDE * L.M;
+    L.V = L.Vx = L.C = L.Sinv = nullptr;
+    L.Dinv = p;  p += DINV_STRIDE * L.M;
     L.X = p;     p += NW * L.M;
-    L.U = p;
+    L.P = cr_pairs(L.M);
+    L.OL = p;    p += O_STRIDE * L.P;
+    L.ORt = p;
   } else {
+    L.V = p;     p += NW * S;
+    L.Vx = p;
+    p = smem + (size_t)w * lane_floats(S, CR) + ((SCALARS * S + 3) & ~3);
     L.C = p;     p += C_STRIDE * S;
     L.Sinv = p;
-    L.Dinv = L.Ol = L.Or = L.X = L.U = nullptr;
+    L.Dinv = L.X = L.OL = L.ORt = nullptr;
+    L.P = 0;
   }
   return L;
 }
 
-// Slot of padded stage i in CR's arrays: elimination order.  Stage i is
-// eliminated at level l = the number of trailing one bits of i, as even
+// Slot of padded stage i in CR's Dinv and X: elimination order.  Stage i
+// is eliminated at level l = the number of trailing one bits of i, as even
 // stage u = (i + 1) >> (l + 1) of that level; the levels before l
 // eliminated (M + 1) - ((M + 1) >> l) stages.  M1 = M + 1.  The last
 // stage, (M - 1) / 2, takes slot M - 1.
@@ -185,6 +227,21 @@ __device__ __forceinline__ int cr_slot(int M1, int i) {
   const int v = i + 1;
   const int l = __ffs(v) - 1;
   return (M1 - (M1 >> l)) + (v >> (l + 1));
+}
+
+// The coupling of stage i >= 1 of a CR level to its stage i - 1, the
+// level's pairs starting at pair `pairs`: odd i is odd stage (i - 1) / 2's
+// OL, even i is even stage i / 2's left coupling, which is odd stage
+// i / 2 - 1's ORt (transposed).  Element (r, c) of the 3x5 coupling is
+// L.OL[at + r * rs + c * cs] (ORt follows OL: one base keeps the stores in
+// shared memory).
+struct Coupling {
+  int at, rs, cs;
+};
+__device__ __forceinline__ Coupling coupling_of(const Lane& L, int pairs,
+                                                int i) {
+  if (i & 1) return {(pairs + ((i - 1) >> 1)) * O_STRIDE, NW, 1};
+  return {(L.P + pairs + (i >> 1) - 1) * O_STRIDE, 1, NX};
 }
 
 // (Aeq w)[s][i] of the stage-layout vector W: r_0 = -x_0,
@@ -269,36 +326,11 @@ __device__ __forceinline__ void load15(const float* p, float (&m)[NX][NW]) {
     for (int j = 0; j < NW; ++j) m[i][j] = v[i * NW + j];
 }
 
-__device__ __forceinline__ void store25(float* p, const float (&m)[NW][NW]) {
-  float4* q = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int k = 0; k < 6; ++k)
-    q[k] = make_float4(m[(4 * k) / NW][(4 * k) % NW],
-                       m[(4 * k + 1) / NW][(4 * k + 1) % NW],
-                       m[(4 * k + 2) / NW][(4 * k + 2) % NW],
-                       m[(4 * k + 3) / NW][(4 * k + 3) % NW]);
-  p[24] = m[4][4];
-}
-
-__device__ __forceinline__ void store15(float* p, const float (&m)[NX][NW]) {
-  float4* q = reinterpret_cast<float4*>(p);
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    q[k] = make_float4(m[(4 * k) / NW][(4 * k) % NW],
-                       m[(4 * k + 1) / NW][(4 * k + 1) % NW],
-                       m[(4 * k + 2) / NW][(4 * k + 2) % NW],
-                       m[(4 * k + 3) / NW][(4 * k + 3) % NW]);
-  p[12] = m[2][2];
-  p[13] = m[2][3];
-  p[14] = m[2][4];
-}
-
 // Step sizes, couplings C_n and the diagonal blocks of one factor
 // (stage-parallel).  Schur: D_n into Sinv's slot n, C_n into C's.  CR: D_n
-// into Dinv's slot of stage n, C_n into Ol's slot of stage n + 1 (the
-// coupling of stage n + 1 to stage n), identity blocks and zero couplings
-// on the pad stages.  polish: boost the rows whose Zw sits at a finite
-// bound.
+// into Dinv's slot of stage n, C_n into level 0's pairs (coupling_of),
+// identity blocks and zero couplings on the pad stages.  polish: boost the
+// rows whose Zw sits at a finite bound.
 template <bool CR>
 __device__ __forceinline__ void prepare_factor(const Lane& L,
                                                const SolverParams& p,
@@ -322,14 +354,22 @@ __device__ __forceinline__ void prepare_factor(const Lane& L,
       rw[j] = r;
       L.rho_w[s * NW + j] = r;
     }
-    float* D = CR ? L.Dinv + cr_slot(L.M + 1, s) * SINV_STRIDE
+    float* D = CR ? L.Dinv + cr_slot(L.M + 1, s) * DINV_STRIDE
                   : L.Sinv + s * SINV_STRIDE;
     if (s < N) {
       const float* ab = L.AB + s * 15;
-      float* c = CR ? L.Ol + cr_slot(L.M + 1, s + 1) * C_STRIDE
-                    : L.C + s * C_STRIDE;
+      if constexpr (CR) {
+        const Coupling c = coupling_of(L, 0, s + 1);
 #pragma unroll
-      for (int e = 0; e < 15; ++e) c[e] = -(rho_eq * ab[e]);
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = 0; j < NW; ++j)
+            L.OL[c.at + i * c.rs + j * c.cs] = -(rho_eq * ab[i * NW + j]);
+      } else {
+        float* c = L.C + s * C_STRIDE;
+#pragma unroll
+        for (int e = 0; e < 15; ++e) c[e] = -(rho_eq * ab[e]);
+      }
 #pragma unroll
       for (int i = 0; i < NW; ++i) {
 #pragma unroll
@@ -360,12 +400,15 @@ __device__ __forceinline__ void prepare_factor(const Lane& L,
   }
   if (CR) {
     for (int s = L.S + L.t; s < L.M; s += WARP) {
-      const int k = cr_slot(L.M + 1, s);
+      float* D = L.Dinv + cr_slot(L.M + 1, s) * DINV_STRIDE;
 #pragma unroll
       for (int e = 0; e < NW * NW; ++e)
-        L.Dinv[k * SINV_STRIDE + e] = (e % (NW + 1) == 0) ? 1.f : 0.f;
+        D[e] = (e % (NW + 1) == 0) ? 1.f : 0.f;
+      const Coupling c = coupling_of(L, 0, s);
 #pragma unroll
-      for (int e = 0; e < NX * NW; ++e) L.Ol[k * C_STRIDE + e] = 0.f;
+      for (int i = 0; i < NX; ++i)
+#pragma unroll
+        for (int j = 0; j < NW; ++j) L.OL[c.at + i * c.rs + j * c.cs] = 0.f;
     }
   }
   __syncwarp();
@@ -492,240 +535,6 @@ __device__ __forceinline__ void substitute(const Lane& L) {
   __syncwarp();
 }
 
-// ---- block cyclic reduction (CR = true) ----
-//
-// Level l holds mc = ((M + 1) >> l) - 1 stages: e = (M + 1) >> (l + 1)
-// even ones, in slots off .. off + e - 1 (off = (M + 1) - ((M + 1) >> l)),
-// and mp = e - 1 odd ones; odd stage u is padded stage
-// ((u + 1) << (l + 1)) - 1, between even stages u and u + 1.  Every product
-// sums its terms in the plain version's order (ops/cyclic_reduction.py),
-// and skips only terms that the plain version adds as +0 (x - 0 = x bit
-// for bit, NaN and -0 included).
-
-// Factor: per level, invert the even stages' blocks in place; then each
-// odd stage u, with OL = its coupling to even stage u, OR = even stage
-// u + 1's coupling to it, and Dinv_u, Dinv_u+1:
-//   D' = (D - OL Dinv_u OL' [x-x block]) - OR' Dinv_u+1[x, x] OR,
-//   O' = -(OL Dinv_u[:, x] OR_prev)   (OR_prev: even stage u's left
-// coupling; u = 0 has no left neighbour and its O' is never read),
-// keeping OL in even stage u's Or slot for the solve.
-__device__ __forceinline__ void cr_factor(const Lane& L) {
-  const int M1 = L.M + 1;
-  for (int l = 0; (M1 >> l) > 2; ++l) {
-    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
-    for (int u = L.t; u < e; u += WARP) {
-      float a[NW][NW], inv[NW][NW];
-      float* d = L.Dinv + (off + u) * SINV_STRIDE;
-      load25(d, a);
-      gj_inverse(a, inv);
-      store25(d, inv);
-    }
-    __syncwarp();
-    for (int u = L.t; u < mp; u += WARP) {
-      // the reduced block is updated in place in shared memory (a float
-      // stored and reloaded rounds nothing), which keeps the registers of
-      // this step to one 3x5 coupling and one partial product
-      const int q = cr_slot(M1, ((u + 1) << (l + 1)) - 1);
-      const float* di0 = L.Dinv + (off + u) * SINV_STRIDE;
-      const float* di1 = di0 + SINV_STRIDE;
-      float* D = L.Dinv + q * SINV_STRIDE;
-      float OL[NX][NW];
-      load15(L.Ol + q * C_STRIDE, OL);
-      store15(L.Or + (off + u) * C_STRIDE, OL);
-      {  // D[x, x] -= OL (Dinv_u OL')
-        float X[NW][NX];
-#pragma unroll
-        for (int i = 0; i < NW; ++i)
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float acc = di0[i * NW] * OL[j][0];
-#pragma unroll
-            for (int k = 1; k < NW; ++k) acc = acc + di0[i * NW + k] * OL[j][k];
-            X[i][j] = acc;
-          }
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float acc = OL[i][0] * X[0][j];
-#pragma unroll
-            for (int k = 1; k < NW; ++k) acc = acc + OL[i][k] * X[k][j];
-            D[i * NW + j] = D[i * NW + j] - acc;
-          }
-      }
-      {  // D -= OR' (Dinv_u+1[x, x] OR)
-        float OR[NX][NW], Y[NX][NW];
-        load15(L.Ol + (off + u + 1) * C_STRIDE, OR);
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = 0; j < NW; ++j) {
-            float acc = di1[i * NW] * OR[0][j];
-#pragma unroll
-            for (int k = 1; k < NX; ++k) acc = acc + di1[i * NW + k] * OR[k][j];
-            Y[i][j] = acc;
-          }
-#pragma unroll
-        for (int i = 0; i < NW; ++i)
-#pragma unroll
-          for (int j = 0; j < NW; ++j) {
-            float acc = OR[0][i] * Y[0][j];
-#pragma unroll
-            for (int k = 1; k < NX; ++k) acc = acc + OR[k][i] * Y[k][j];
-            D[i * NW + j] = D[i * NW + j] - acc;
-          }
-      }
-      if (u > 0) {  // O' = -(OL (Dinv_u[:, x] OR_prev)), column by column
-        float ORp[NX][NW], O[NX][NW];
-        load15(L.Ol + (off + u) * C_STRIDE, ORp);
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-          float z[NW];
-#pragma unroll
-          for (int i = 0; i < NW; ++i) {
-            float acc = di0[i * NW] * ORp[0][j];
-#pragma unroll
-            for (int k = 1; k < NX; ++k) acc = acc + di0[i * NW + k] * ORp[k][j];
-            z[i] = acc;
-          }
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            float acc = OL[i][0] * z[0];
-#pragma unroll
-            for (int k = 1; k < NW; ++k) acc = acc + OL[i][k] * z[k];
-            O[i][j] = -acc;
-          }
-        }
-        store15(L.Ol + q * C_STRIDE, O);
-      }
-    }
-    __syncwarp();
-  }
-  if (L.t == 0) {  // the last level's one stage
-    float a[NW][NW], inv[NW][NW];
-    float* d = L.Dinv + (L.M - 1) * SINV_STRIDE;
-    load25(d, a);
-    gj_inverse(a, inv);
-    store25(d, inv);
-  }
-  __syncwarp();
-}
-
-// w = Dinv b for the 5x5 inverse at `di` (left-to-right sums)
-__device__ __forceinline__ void cr_mv(const float* di, const float (&b)[NW],
-                                      float (&w)[NW]) {
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    float acc = di[i * NW] * b[0];
-#pragma unroll
-    for (int j = 1; j < NW; ++j) acc = acc + di[i * NW + j] * b[j];
-    w[i] = acc;
-  }
-}
-
-// M w = V.  Down: per level, U_u = Dinv_u X_u on the even stages, then
-// each odd stage X -= pad(OL U_u) and X -= OR' U_u+1[x]; the last stage
-// X = Dinv X; up: per level, each even stage X_u = Dinv_u ((X_u -
-// pad(OR_prev w_left)) - OL_u' w_right[x]), the odd neighbours solved.
-__device__ __forceinline__ void cr_solve(const Lane& L) {
-  const int M1 = L.M + 1;
-  for (int s = L.t; s < L.M; s += WARP) {
-    float* x = L.X + cr_slot(M1, s) * NW;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) x[j] = s < L.S ? L.V[s * NW + j] : 0.f;
-  }
-  __syncwarp();
-  int l = 0;
-  for (; (M1 >> l) > 2; ++l) {
-    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
-    for (int u = L.t; u < e; u += WARP) {
-      const int k = off + u;
-      float b[NW], w[NW];
-#pragma unroll
-      for (int j = 0; j < NW; ++j) b[j] = L.X[k * NW + j];
-      cr_mv(L.Dinv + k * SINV_STRIDE, b, w);
-#pragma unroll
-      for (int j = 0; j < NW; ++j) L.U[k * NW + j] = w[j];
-    }
-    __syncwarp();
-    for (int u = L.t; u < mp; u += WARP) {
-      const int q = cr_slot(M1, ((u + 1) << (l + 1)) - 1);
-      const float* OL = L.Or + (off + u) * C_STRIDE;
-      const float* OR = L.Ol + (off + u + 1) * C_STRIDE;
-      const float* u0 = L.U + (off + u) * NW;
-      const float* u1 = u0 + NW;
-      float* x = L.X + q * NW;
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float acc = OL[i * NW] * u0[0];
-#pragma unroll
-        for (int j = 1; j < NW; ++j) acc = acc + OL[i * NW + j] * u0[j];
-        x[i] = x[i] - acc;
-      }
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        float acc = OR[j] * u1[0];
-        acc = acc + OR[NW + j] * u1[1];
-        acc = acc + OR[2 * NW + j] * u1[2];
-        x[j] = x[j] - acc;
-      }
-    }
-    __syncwarp();
-  }
-  if (L.t == 0) {
-    float b[NW], w[NW];
-    float* x = L.X + (L.M - 1) * NW;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) b[j] = x[j];
-    cr_mv(L.Dinv + (L.M - 1) * SINV_STRIDE, b, w);
-#pragma unroll
-    for (int j = 0; j < NW; ++j) x[j] = w[j];
-  }
-  __syncwarp();
-  for (--l; l >= 0; --l) {
-    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
-    for (int u = L.t; u < e; u += WARP) {
-      const int k = off + u;
-      float b[NW], w[NW];
-#pragma unroll
-      for (int j = 0; j < NW; ++j) b[j] = L.X[k * NW + j];
-      if (u > 0) {  // the odd neighbour on the left
-        const float* O = L.Ol + k * C_STRIDE;
-        const float* wl = L.X + cr_slot(M1, (u << (l + 1)) - 1) * NW;
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          float acc = O[i * NW] * wl[0];
-#pragma unroll
-          for (int j = 1; j < NW; ++j) acc = acc + O[i * NW + j] * wl[j];
-          b[i] = b[i] - acc;
-        }
-      }
-      if (u < mp) {  // the odd neighbour on the right
-        const float* O = L.Or + k * C_STRIDE;
-        const float* wr = L.X + cr_slot(M1, ((u + 1) << (l + 1)) - 1) * NW;
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-          float acc = O[j] * wr[0];
-          acc = acc + O[NW + j] * wr[1];
-          acc = acc + O[2 * NW + j] * wr[2];
-          b[j] = b[j] - acc;
-        }
-      }
-      cr_mv(L.Dinv + k * SINV_STRIDE, b, w);
-#pragma unroll
-      for (int j = 0; j < NW; ++j) L.X[k * NW + j] = w[j];
-    }
-    __syncwarp();
-  }
-  for (int s = L.t; s < L.S; s += WARP) {
-    const float* x = L.X + cr_slot(M1, s) * NW;
-#pragma unroll
-    for (int j = 0; j < NW; ++j) L.V[s * NW + j] = x[j];
-  }
-  __syncwarp();
-}
-
-template <bool CR>
 __device__ __forceinline__ void iteration(const Lane& L,
                                           const SolverParams& p,
                                           float rho_eq) {
@@ -747,10 +556,7 @@ __device__ __forceinline__ void iteration(const Lane& L,
     }
   }
   __syncwarp();
-  if constexpr (CR)
-    cr_solve(L);
-  else
-    substitute(L);
+  substitute(L);
   // relaxation, projection and dual updates, stage-parallel
   for (int s = L.t; s < L.S; s += WARP) {
 #pragma unroll
@@ -774,6 +580,397 @@ __device__ __forceinline__ void iteration(const Lane& L,
   __syncwarp();
 }
 
+// ---- block cyclic reduction (CR = true) ----
+//
+// Level l holds mc = ((M + 1) >> l) - 1 stages: e = (M + 1) >> (l + 1)
+// even ones, in slots off .. off + e - 1 (off = (M + 1) - ((M + 1) >> l)),
+// and mp = e - 1 odd ones, whose coupling pairs start at pair off - l; odd
+// stage u is padded stage ((u + 1) << (l + 1)) - 1, between even stages u
+// and u + 1, and is stage u of level l + 1.  Every product sums its terms
+// in the plain version's order (ops/cyclic_reduction.py), and skips only
+// terms that the plain version adds as +0 (x - 0 = x bit for bit, NaN and
+// -0 included).
+
+// The 5x5 block at d (stride 25) replaced by its Gauss-Jordan inverse.
+__device__ __forceinline__ void invert_block(float* d) {
+  float a[NW][NW], inv[NW][NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) a[i][j] = d[i * NW + j];
+  gj_inverse(a, inv);
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) d[i * NW + j] = inv[i][j];
+}
+
+// Factor, one thread a stage: per level, invert the even stages' blocks in
+// place; then each odd stage u, with OL = its coupling to even stage u,
+// OR = even stage u + 1's coupling to it, and Dinv_u, Dinv_u+1:
+//   D' = (D - OL Dinv_u OL' [x-x block]) - OR' Dinv_u+1[x, x] OR,
+//   O' = -(OL Dinv_u[:, x] OR_prev)   (OR_prev: odd stage u - 1's OR;
+// u = 0 has no left neighbour and its O' is never read),
+// O' written as the coupling of stage u of level l + 1 to its stage u - 1.
+__device__ __forceinline__ void cr_factor(const Lane& L) {
+  const int M1 = L.M + 1;
+  for (int l = 0; (M1 >> l) > 2; ++l) {
+    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
+    const float* OLl = L.OL + (off - l) * O_STRIDE;
+    const float* ORl = L.ORt + (off - l) * O_STRIDE;
+    for (int u = L.t; u < e; u += WARP)
+      invert_block(L.Dinv + (off + u) * DINV_STRIDE);
+    __syncwarp();
+    for (int u = L.t; u < mp; u += WARP) {
+      // the reduced block is updated in place in shared memory (a float
+      // stored and reloaded rounds nothing), which keeps the registers of
+      // this step to one 3x5 coupling and one partial product
+      const int q = cr_slot(M1, ((u + 1) << (l + 1)) - 1);
+      const float* di0 = L.Dinv + (off + u) * DINV_STRIDE;
+      const float* di1 = di0 + DINV_STRIDE;
+      float* D = L.Dinv + q * DINV_STRIDE;
+      float OL[NX][NW];
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+#pragma unroll
+        for (int j = 0; j < NW; ++j) OL[i][j] = OLl[u * O_STRIDE + i * NW + j];
+      {  // D[x, x] -= OL (Dinv_u OL')
+        float X[NW][NX];
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            float acc = di0[i * NW] * OL[j][0];
+#pragma unroll
+            for (int k = 1; k < NW; ++k) acc = acc + di0[i * NW + k] * OL[j][k];
+            X[i][j] = acc;
+          }
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) {
+            float acc = OL[i][0] * X[0][j];
+#pragma unroll
+            for (int k = 1; k < NW; ++k) acc = acc + OL[i][k] * X[k][j];
+            D[i * NW + j] = D[i * NW + j] - acc;
+          }
+      }
+      {  // D -= OR' (Dinv_u+1[x, x] OR)
+        const float* o = ORl + u * O_STRIDE;  // OR[k][j] = o[j * 3 + k]
+        float Y[NX][NW];
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            float acc = di1[i * NW] * o[j * NX];
+#pragma unroll
+            for (int k = 1; k < NX; ++k)
+              acc = acc + di1[i * NW + k] * o[j * NX + k];
+            Y[i][j] = acc;
+          }
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            float acc = o[i * NX] * Y[0][j];
+#pragma unroll
+            for (int k = 1; k < NX; ++k) acc = acc + o[i * NX + k] * Y[k][j];
+            D[i * NW + j] = D[i * NW + j] - acc;
+          }
+      }
+      if (u > 0) {  // O' = -(OL (Dinv_u[:, x] OR_prev)), column by column
+        const float* o = ORl + (u - 1) * O_STRIDE;  // OR_prev, transposed
+        const Coupling c = coupling_of(L, off + e - l - 1, u);
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          float z[NW];
+#pragma unroll
+          for (int i = 0; i < NW; ++i) {
+            float acc = di0[i * NW] * o[j * NX];
+#pragma unroll
+            for (int k = 1; k < NX; ++k)
+              acc = acc + di0[i * NW + k] * o[j * NX + k];
+            z[i] = acc;
+          }
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            float acc = OL[i][0] * z[0];
+#pragma unroll
+            for (int k = 1; k < NW; ++k) acc = acc + OL[i][k] * z[k];
+            L.OL[c.at + i * c.rs + j * c.cs] = -acc;
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+  if (L.t == 0) invert_block(L.Dinv + (L.M - 1) * DINV_STRIDE);  // the last
+  __syncwarp();
+}
+
+// M w = X in place.  Down: per level, U_u = Dinv_u X_u on the even
+// stages, then each odd stage X -= pad(OL U_u) and X -= OR' U_u+1[x]; the
+// last stage X = Dinv X; up: per level, each even stage X_u = Dinv_u ((X_u
+// - pad(OR_prev w_left)) - OL_u' w_right[x]), the odd neighbours solved.
+// A level of CR_WIDE or more even stages gives a thread a stage (five
+// independent row sums: the latency of one), a narrower one a (stage, row)
+// pair (header); U goes from thread to thread by __shfl_sync either way.
+__device__ __forceinline__ void cr_solve(const Lane& L) {
+  const int M1 = L.M + 1;
+  const int g = L.t / NW, r = L.t - NW * g;  // group, row
+  int l = 0;
+  for (; (M1 >> l) > 2; ++l) {
+    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
+    const float* OLl = L.OL + (off - l) * O_STRIDE;
+    const float* ORl = L.ORt + (off - l) * O_STRIDE;
+    if (e >= CR_WIDE) {  // a stage a thread: 32 even, 31 odd a round
+      for (int base = 0; base < mp; base += WARP - 1) {
+        const int u = base + L.t;
+        float U[NW];  // U_u
+        if (u < e) {
+          const float* d = L.Dinv + (off + u) * DINV_STRIDE;
+          const float* xb = L.X + (off + u) * NW;
+          float b[NW];
+#pragma unroll
+          for (int j = 0; j < NW; ++j) b[j] = xb[j];
+#pragma unroll
+          for (int i = 0; i < NW; ++i) {
+            float acc = d[i * NW] * b[0];
+#pragma unroll
+            for (int j = 1; j < NW; ++j) acc = acc + d[i * NW + j] * b[j];
+            U[i] = acc;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < NW; ++i) U[i] = 0.f;
+        }
+        float u1[NX];  // U_u+1[x], from the next thread
+#pragma unroll
+        for (int j = 0; j < NX; ++j) u1[j] = __shfl_down_sync(FULL, U[j], 1);
+        if (L.t < WARP - 1 && u < mp) {
+          float* x = L.X + cr_slot(M1, ((u + 1) << (l + 1)) - 1) * NW;
+          const float* ol = OLl + u * O_STRIDE;
+          const float* ort = ORl + u * O_STRIDE;
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            float xv = x[j];
+            if (j < NX) {
+              float acc = ol[j * NW] * U[0];
+#pragma unroll
+              for (int k = 1; k < NW; ++k) acc = acc + ol[j * NW + k] * U[k];
+              xv = xv - acc;
+            }
+            float acc = ort[j * NX] * u1[0];
+            acc = acc + ort[j * NX + 1] * u1[1];
+            acc = acc + ort[j * NX + 2] * u1[2];
+            x[j] = xv - acc;
+          }
+        }
+      }
+    } else {  // (stage, row) pairs: 6 even, 5 odd stages a round
+      for (int base = 0; base < mp; base += CR_GROUPS - 1) {
+        const int u = base + g;
+        float uv = 0.f;  // row r of U_u
+        if (g < CR_GROUPS && u < e) {
+          const float* d = L.Dinv + (off + u) * DINV_STRIDE + r * NW;
+          const float* b = L.X + (off + u) * NW;
+          uv = d[0] * b[0];
+#pragma unroll
+          for (int j = 1; j < NW; ++j) uv = uv + d[j] * b[j];
+        }
+        float u0[NW], u1[NX];  // U_u, U_u+1[x] (lanes past 31 wrap: unused)
+#pragma unroll
+        for (int j = 0; j < NW; ++j) u0[j] = __shfl_sync(FULL, uv, NW * g + j);
+#pragma unroll
+        for (int j = 0; j < NX; ++j)
+          u1[j] = __shfl_sync(FULL, uv, NW * (g + 1) + j);
+        const bool odd = g < CR_GROUPS - 1 && u < mp;
+        float x = 0.f;
+        int q = 0;
+        if (odd) {  // row r of odd stage u
+          q = cr_slot(M1, ((u + 1) << (l + 1)) - 1);
+          x = L.X[q * NW + r];
+          if (r < NX) {
+            const float* o = OLl + u * O_STRIDE + r * NW;
+            float acc = o[0] * u0[0];
+#pragma unroll
+            for (int j = 1; j < NW; ++j) acc = acc + o[j] * u0[j];
+            x = x - acc;
+          }
+          const float* o = ORl + u * O_STRIDE + r * NX;
+          float acc = o[0] * u1[0];
+          acc = acc + o[1] * u1[1];
+          acc = acc + o[2] * u1[2];
+          x = x - acc;
+        }
+        if (e > 2) {
+          if (odd) L.X[q * NW + r] = x;
+        } else {  // the last level's one odd stage is the last stage
+          float b[NW];
+#pragma unroll
+          for (int j = 0; j < NW; ++j) b[j] = __shfl_sync(FULL, x, j);
+          if (L.t < NW) {
+            const float* d = L.Dinv + (L.M - 1) * DINV_STRIDE + r * NW;
+            float w = d[0] * b[0];
+#pragma unroll
+            for (int j = 1; j < NW; ++j) w = w + d[j] * b[j];
+            L.X[(L.M - 1) * NW + r] = w;
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+  for (--l; l >= 0; --l) {
+    const int e = M1 >> (l + 1), mp = e - 1, off = M1 - (M1 >> l);
+    const float* OLl = L.OL + (off - l) * O_STRIDE;
+    const float* ORl = L.ORt + (off - l) * O_STRIDE;
+    if (e >= CR_WIDE) {  // a stage a thread
+      for (int u = L.t; u < e; u += WARP) {
+        const int k = off + u;
+        float b[NW];
+#pragma unroll
+        for (int j = 0; j < NW; ++j) b[j] = L.X[k * NW + j];
+        if (u > 0) {  // the odd neighbour on the left: OR_prev
+          const float* o = ORl + (u - 1) * O_STRIDE;
+          const float* wl = L.X + cr_slot(M1, (u << (l + 1)) - 1) * NW;
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            float acc = o[i] * wl[0];
+#pragma unroll
+            for (int j = 1; j < NW; ++j) acc = acc + o[j * NX + i] * wl[j];
+            b[i] = b[i] - acc;
+          }
+        }
+        if (u < mp) {  // the odd neighbour on the right: OL_u'
+          const float* o = OLl + u * O_STRIDE;
+          const float* wr = L.X + cr_slot(M1, ((u + 1) << (l + 1)) - 1) * NW;
+#pragma unroll
+          for (int j = 0; j < NW; ++j) {
+            float acc = o[j] * wr[0];
+            acc = acc + o[NW + j] * wr[1];
+            acc = acc + o[2 * NW + j] * wr[2];
+            b[j] = b[j] - acc;
+          }
+        }
+        const float* d = L.Dinv + k * DINV_STRIDE;
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          float w = d[i * NW] * b[0];
+#pragma unroll
+          for (int j = 1; j < NW; ++j) w = w + d[i * NW + j] * b[j];
+          L.X[k * NW + i] = w;
+        }
+      }
+    } else {  // (stage, row) pairs: 6 even stages a round
+      for (int base = 0; base < e; base += CR_GROUPS) {
+        const int u = base + g, k = off + u;
+        const bool even = g < CR_GROUPS && u < e;
+        float b = 0.f;  // row r of the even stage's right-hand side
+        if (even) {
+          b = L.X[k * NW + r];
+          if (u > 0 && r < NX) {  // the odd neighbour on the left: OR_prev
+            const float* o = ORl + (u - 1) * O_STRIDE + r;
+            const float* wl = L.X + cr_slot(M1, (u << (l + 1)) - 1) * NW;
+            float acc = o[0] * wl[0];
+#pragma unroll
+            for (int j = 1; j < NW; ++j) acc = acc + o[j * NX] * wl[j];
+            b = b - acc;
+          }
+          if (u < mp) {  // the odd neighbour on the right: OL_u'
+            const float* o = OLl + u * O_STRIDE + r;
+            const float* wr = L.X + cr_slot(M1, ((u + 1) << (l + 1)) - 1) * NW;
+            float acc = o[0] * wr[0];
+            acc = acc + o[NW] * wr[1];
+            acc = acc + o[2 * NW] * wr[2];
+            b = b - acc;
+          }
+        }
+        float bv[NW];
+#pragma unroll
+        for (int j = 0; j < NW; ++j) bv[j] = __shfl_sync(FULL, b, NW * g + j);
+        if (even) {  // row r of Dinv_u b over the thread's own element
+          const float* d = L.Dinv + k * DINV_STRIDE + r * NW;
+          float w = d[0] * bv[0];
+#pragma unroll
+          for (int j = 1; j < NW; ++j) w = w + d[j] * bv[j];
+          L.X[k * NW + r] = w;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// (Aeq w)[s][i] with stage s's w at w and stage s - 1's at wp (X's slots)
+__device__ __forceinline__ float req_at(const Lane& L, const float* wp,
+                                        const float* w, int s, int i) {
+  if (s == 0) return -w[i];
+  const float* ab = L.AB + (s - 1) * 15 + i * NW;
+  float acc = ab[0] * wp[0];
+#pragma unroll
+  for (int j = 1; j < NW; ++j) acc = acc + ab[j] * wp[j];
+  return acc - w[i];
+}
+
+// iteration() with cyclic reduction: the right-hand side is written
+// straight into X's slots (the pad stages' set to zero), solved in place,
+// and the relaxation reads the solution from there.  Kept apart from
+// iteration() so that the Schur kernels compile as before.
+__device__ __forceinline__ void cr_iteration(const Lane& L,
+                                             const SolverParams& p,
+                                             float rho_eq) {
+  const int M1 = L.M + 1;
+  // right-hand side, stage-parallel (weq = rho_eq beq - Yeq)
+  for (int s = L.t; s < L.M; s += WARP) {
+    float* x = L.X + cr_slot(M1, s) * NW;
+    if (s >= L.S) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) x[j] = 0.f;
+      continue;
+    }
+    float ws[NX], wn[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      ws[i] = rho_eq * L.beq[s * NX + i] - L.Yeq[s * NX + i];
+      wn[i] = s < L.N
+          ? rho_eq * L.beq[(s + 1) * NX + i] - L.Yeq[(s + 1) * NX + i]
+          : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int e = s * NW + j;
+      x[j] = (((p.sigma * L.W[e] - L.qv[e]) + eqT(L, wn, ws, s, j))
+              + L.rho_w[e] * L.Zw[e]) - L.Yw[e];
+    }
+  }
+  __syncwarp();
+  cr_solve(L);
+  // relaxation, projection and dual updates, stage-parallel
+  for (int s = L.t; s < L.S; s += WARP) {
+    const float* x = L.X + cr_slot(M1, s) * NW;
+    const float* xp = s > 0 ? L.X + cr_slot(M1, s - 1) * NW : x;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const float b = L.beq[s * NX + i];
+      const float r = req_at(L, xp, x, s, i);
+      const float zpre = p.alpha * r + p.one_m_alpha * b;
+      L.Yeq[s * NX + i] = L.Yeq[s * NX + i] + rho_eq * (zpre - b);
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int e = s * NW + j;
+      const float wt = x[j], rw = L.rho_w[e], yw = L.Yw[e];
+      L.W[e] = p.alpha * wt + p.one_m_alpha * L.W[e];
+      const float zp = p.alpha * wt + p.one_m_alpha * L.Zw[e];
+      const float zn = clampf(zp + yw / rw, L.lw[e], L.uw[e]);
+      L.Yw[e] = yw + rw * (zp - zn);
+      L.Zw[e] = zn;
+    }
+  }
+  __syncwarp();
+}
+
 template <bool CR>
 __device__ __forceinline__ void run_iters(const Lane& L,
                                           const SolverParams& p, int iters,
@@ -784,7 +981,12 @@ __device__ __forceinline__ void run_iters(const Lane& L,
   else
     factor(L);
   const float rho_eq = rho * p.eq_scale;
-  for (int k = 0; k < iters; ++k) iteration<CR>(L, p, rho_eq);
+  for (int k = 0; k < iters; ++k) {
+    if constexpr (CR)
+      cr_iteration(L, p, rho_eq);
+    else
+      iteration(L, p, rho_eq);
+  }
 }
 
 __device__ __forceinline__ float primal_res(const Lane& L) {
@@ -921,6 +1123,87 @@ __device__ __forceinline__ void admm_solve(const Lane& L,
     o.rp[b] = rp;
     o.rd[b] = rd;
   }
+}
+
+// Launch shape of ADMM kernel `fn` (an instantiation of K1's or K3's
+// kernel with stage solver CR) for B lanes at horizon N: lanes a block,
+// their dynamic shared memory, and, where per_sm is given, the lanes
+// resident on one SM by CUDA's occupancy calculator.  Schur: as many lanes
+// as fit, at most MAX_LANES_PER_BLOCK.  CR: of 1, 2, 4, .. 16 lanes a
+// block, the fewest that keep as many lanes resident on an SM as the
+// batch can use, B / SMs up to the most any count keeps: a full card
+// takes the densest blocks, a small batch one lane a block on as many SMs
+// as it has lanes (the residencies are cached per horizon).  Sets the
+// kernel's shared-memory attributes; returns the first CUDA error.
+template <bool CR, typename Kernel>
+cudaError_t launch_shape(Kernel* fn, int N, int B, int* lanes, int* smem,
+                         int* per_sm) {
+  *lanes = *smem = 0;
+  if (N < 1) return cudaErrorInvalidValue;
+  const int bytes = lane_floats(N + 1, CR) * 4;
+  cudaError_t err;
+  if constexpr (!CR) {
+    *lanes = lanes_per_block(N);
+    if (*lanes < 1) return cudaErrorInvalidValue;
+    *smem = *lanes * bytes;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               *smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  } else {
+    if (bytes > MAX_SMEM_BYTES) return cudaErrorInvalidValue;
+    constexpr int CACHED = 1024, COUNTS = 5;  // 1, 2, 4, 8, 16 lanes a block
+    static int resident[CACHED][COUNTS];  // lanes per SM; all 0: not yet
+    static int sms = 0;
+    int res[COUNTS] = {0, 0, 0, 0, 0};
+    if (N < CACHED)
+      for (int i = 0; i < COUNTS; ++i) res[i] = resident[N][i];
+    if (res[0] == 0) {
+      int dev = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   MAX_SMEM_BYTES);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+      for (int i = 0; i < COUNTS && err == cudaSuccess; ++i) {
+        const int n = 1 << i;
+        if (n * bytes > MAX_SMEM_BYTES) break;
+        int blocks = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, fn, WARP * n, n * bytes);
+        res[i] = blocks * n;
+      }
+      if (err != cudaSuccess) return err;
+      if (N < CACHED)
+        for (int i = 0; i < COUNTS; ++i) resident[N][i] = res[i];
+    }
+    int most = 0;
+    for (int i = 0; i < COUNTS; ++i) most = res[i] > most ? res[i] : most;
+    if (most < 1) return cudaErrorInvalidValue;
+    const long long want = ((long long)B + sms - 1) / (sms > 0 ? sms : 1);
+    const int need = want < most ? (int)want : most;
+    int i = 0;
+    while (res[i] < need) ++i;
+    *lanes = 1 << i;
+    *smem = *lanes * bytes;
+  }
+  if (per_sm != nullptr) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                        WARP * *lanes, *smem);
+    if (err != cudaSuccess) return err;
+    *per_sm = blocks * *lanes;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace

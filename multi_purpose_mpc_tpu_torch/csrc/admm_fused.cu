@@ -31,8 +31,16 @@
 // cyclic reduction as the stage solver (admm_core.cuh: cr_factor,
 // cr_solve; the TPU kernel's factor_cr / solve_cr, admm_pallas.py:509-659):
 // 2 x log2(M + 1) level steps a solve instead of 2 x N stage steps, each
-// level parallel over its stages, at about twice the block arithmetic and
-// 17 KB of shared memory a lane at N = 30 (M = 31 padded stages).
+// level's solve spread over the warp (a stage or a (stage, row) pair a
+// thread), at about twice the block arithmetic.  Its lane takes 14,416
+// bytes of shared memory at N = 30 (M = 31 padded stages); the launcher
+// picks its lanes a block by CUDA's occupancy calculator and the batch
+// (launch_shape) under a 512-thread launch bound, which holds it to 128
+// registers, so 16 lanes share an SM and B = 4096 runs in two waves.
+// What bounds it on an H100 at B = 4096: shared-memory bandwidth (each
+// solve level reads its blocks and couplings from shared memory).
+
+#include <limits.h>
 
 #include "admm_core.cuh"
 
@@ -45,7 +53,9 @@ struct AdmmParams {  // mirrored by ctypes in ops/admm_cuda.py::_Params
 namespace {
 
 template <bool CR>
-__global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_fused_kernel(
+__global__ void __launch_bounds__(
+    WARP * (CR ? MAX_CR_LANES_PER_BLOCK : MAX_LANES_PER_BLOCK))
+    admm_fused_kernel(
     const float* __restrict__ v_ref, const float* __restrict__ kappa_ref,
     const float* __restrict__ delta_s, const float* __restrict__ lb_c,
     const float* __restrict__ ub_c, const float* __restrict__ kappa_pred,
@@ -167,18 +177,12 @@ int launch(const float* v_ref, const float* kappa_ref, const float* delta_s,
            const float* Yeq0, const float* Yw0, const float* rho0,
            const Outputs& out, float* floor_out, int B, int N,
            const AdmmParams& p, cudaStream_t stream) {
-  const int lanes = N < 1 ? 0 : lanes_per_block(N, CR);
-  if (lanes < 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
-  const int smem = lanes * lane_floats(N + 1, CR) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_fused_kernel<CR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admm_fused_kernel<CR>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  int lanes = 0, smem = 0;
+  const cudaError_t err =
+      launch_shape<CR>(admm_fused_kernel<CR>, N, B, &lanes, &smem,
+                       nullptr);
   if (err != cudaSuccess) return (int)err;
+  if (B <= 0) return 0;
   admm_fused_kernel<CR><<<(B + lanes - 1) / lanes, WARP * lanes,
                           (size_t)smem, stream>>>(
       v_ref, kappa_ref, delta_s, lb_c, ub_c, kappa_pred, x0, W0, Zw0, Yeq0,
@@ -201,4 +205,17 @@ extern "C" int admm_fused_launch(
   const auto run = cyclic_reduction ? launch<true> : launch<false>;
   return run(v_ref, kappa_ref, delta_s, lb_c, ub_c, kappa_pred, x0, W0, Zw0,
              Yeq0, Yw0, rho0, out, floor_out, B, N, p, (cudaStream_t)stream);
+}
+
+// The launch shape the launcher picks at horizon N for a batch that fills
+// the card (cyclic_reduction as above): lanes a block and the lanes
+// resident on one SM.
+extern "C" int admm_fused_occupancy(int N, int cyclic_reduction,
+                                    int* lanes, int* per_sm) {
+  int smem = 0;
+  if (cyclic_reduction)
+    return (int)launch_shape<true>(admm_fused_kernel<true>, N, INT_MAX, lanes,
+                                   &smem, per_sm);
+  return (int)launch_shape<false>(admm_fused_kernel<false>, N, INT_MAX, lanes,
+                                  &smem, per_sm);
 }

@@ -20,14 +20,19 @@
 // iteration, ~12k dependent stage steps per lane, with 16 lanes resident
 // per SM.
 // SolverConfig(stage_solver="cr") launches the instantiation with block
-// cyclic reduction as the stage solver, as in kernel K1.
+// cyclic reduction as the stage solver, with K1's CR lane and launch
+// shape.
+
+#include <limits.h>
 
 #include "admm_core.cuh"
 
 namespace {
 
 template <bool CR>
-__global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK) admm_structured_kernel(
+__global__ void __launch_bounds__(
+    WARP * (CR ? MAX_CR_LANES_PER_BLOCK : MAX_LANES_PER_BLOCK))
+    admm_structured_kernel(
     const float* __restrict__ AB, const float* __restrict__ beq,
     const float* __restrict__ Pd, const float* __restrict__ qv,
     const float* __restrict__ lw, const float* __restrict__ uw,
@@ -66,18 +71,12 @@ int launch(const float* AB, const float* beq, const float* Pd,
            const float* W0, const float* Zw0, const float* Yeq0,
            const float* Yw0, const float* rho0, const Outputs& out, int B,
            int N, const SolverParams& p, cudaStream_t stream) {
-  const int lanes = N < 1 ? 0 : lanes_per_block(N, CR);
-  if (lanes < 1) return (int)cudaErrorInvalidValue;
-  if (B <= 0) return 0;
-  const int smem = lanes * lane_floats(N + 1, CR) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_structured_kernel<CR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admm_structured_kernel<CR>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  int lanes = 0, smem = 0;
+  const cudaError_t err =
+      launch_shape<CR>(admm_structured_kernel<CR>, N, B, &lanes, &smem,
+                       nullptr);
   if (err != cudaSuccess) return (int)err;
+  if (B <= 0) return 0;
   admm_structured_kernel<CR><<<(B + lanes - 1) / lanes, WARP * lanes,
                                (size_t)smem, stream>>>(
       AB, beq, Pd, qv, lw, uw, W0, Zw0, Yeq0, Yw0, rho0, out, B, N, p);
@@ -98,4 +97,17 @@ extern "C" int admm_structured_launch(
   const auto run = cyclic_reduction ? launch<true> : launch<false>;
   return run(AB, beq, Pd, qv, lw, uw, W0, Zw0, Yeq0, Yw0, rho0, out, B, N, p,
              (cudaStream_t)stream);
+}
+
+// The launch shape the launcher picks at horizon N for a batch that fills
+// the card (cyclic_reduction as above): lanes a block and the lanes
+// resident on one SM.
+extern "C" int admm_structured_occupancy(int N, int cyclic_reduction,
+                                         int* lanes, int* per_sm) {
+  int smem = 0;
+  if (cyclic_reduction)
+    return (int)launch_shape<true>(admm_structured_kernel<true>, N,
+                                   INT_MAX, lanes, &smem, per_sm);
+  return (int)launch_shape<false>(admm_structured_kernel<false>, N,
+                                  INT_MAX, lanes, &smem, per_sm);
 }

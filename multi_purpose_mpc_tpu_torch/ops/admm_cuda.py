@@ -51,8 +51,12 @@ stage solver of both kernels and of both plain versions (the TPU kernel's
 solve is 2 x log2(M + 1) level steps over the M = 2^k - 1 >= N + 1 padded
 stages, each level parallel over its stages, instead of 2 x N stage steps.
 Each wrapper counts the launches of its Schur kernel (``launches``) and of
-its CR kernel (``launches_cr``) apart.  A CR lane holds 69 floats a stage
-and 70 a padded stage, so its horizon bound is :data:`N_MAX_CR`.
+its CR kernel (``launches_cr``) apart.  The CR instantiation spreads each
+level of its solve over the warp (a stage or a (stage, row) pair a
+thread), and its lane holds 61 floats a stage, 30 a padded stage and 30 an
+odd stage of any level (14,416 bytes at N = 30), so its horizon bound is
+:data:`N_MAX_CR`; its launcher picks the lanes a block by CUDA's occupancy
+calculator and the batch (:func:`occupancy` reports the choice).
 
 Status and ``eps_d`` use the raw-data ``qmax`` bound of the fused TPU
 entry point (not the structured solver's ``scale_d``), and the step size
@@ -80,14 +84,17 @@ _MAX_SMEM_BYTES = 232448  # dynamic shared memory of one block on Hopper
 
 def lane_smem_bytes(N: int, cr: bool = False) -> int:
     """Shared memory of one lane at horizon N (``lane_floats`` in
-    csrc/admm_core.cuh): 69 floats a stage rounded up to 16 bytes, then the
-    Schur recursion's couplings and inverses, 16 and 28 floats a stage, or
-    cyclic reduction's 70 floats a padded stage (rounded up to 16 bytes)."""
+    csrc/admm_core.cuh).  Schur: 69 floats a stage rounded up to 16 bytes,
+    then the recursion's couplings and inverses, 16 and 28 floats a stage.
+    Cyclic reduction: 61 floats a stage, 30 a padded stage (the block and
+    its inverse, the right-hand side and solution) and 30 an odd stage of
+    any level (its two couplings), rounded up to 16 bytes."""
     S = N + 1
-    base = (69 * S + 3) & ~3
     if cr:
-        return 4 * ((base + 70 * padded_stages(S) + 3) & ~3)
-    return 4 * (base + 44 * S)
+        M = padded_stages(S)
+        pairs = M - (M + 1).bit_length() + 1
+        return 4 * ((61 * S + 30 * M + 30 * pairs + 3) & ~3)
+    return 4 * (((69 * S + 3) & ~3) + 44 * S)
 
 
 # the longest horizons whose lane fits in one block's shared memory
@@ -281,6 +288,27 @@ def solve_mpc_qp_fused_cuda(v_ref, kappa_ref, delta_s, lb_c, ub_c, x0,
 
 solve_mpc_qp_fused_cuda.launches = 0
 solve_mpc_qp_fused_cuda.launches_cr = 0
+
+
+def occupancy(kernel: str, N: int, cr: bool) -> tuple:
+    """``(lanes a block, lanes resident per SM)`` of K1 (``kernel="fused"``)
+    or K3 (``"structured"``) at horizon N with the Schur or (``cr``) the
+    cyclic-reduction stage solver: the launcher's own choice for a batch
+    that fills the card (``launch_shape`` in csrc/admm_core.cuh) and CUDA's
+    occupancy calculator for it.  Needs the card."""
+    if kernel not in ("fused", "structured"):
+        raise ValueError(
+            f"kernel must be 'fused' or 'structured', got {kernel!r}")
+    _check_horizon(N, cr)
+    torch.cuda.init()
+    fn = getattr(kernels.load(f"admm_{kernel}"), f"admm_{kernel}_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lanes, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(N, int(cr), ctypes.byref(lanes), ctypes.byref(per_sm))
+    kernels.check_launch(rc, f"admm_{kernel}_occupancy")
+    return lanes.value, per_sm.value
 
 
 # ---------------------------------------------------------------------------

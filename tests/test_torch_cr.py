@@ -197,18 +197,19 @@ def test_auto_is_schur_and_xla_counterpart_ignores_cr(batch):
 
 
 def test_cr_horizon_bound():
-    """A CR lane holds 69 floats a stage and 70 a padded stage in shared
-    memory (csrc/admm_core.cuh, lane_floats): 17,248 bytes at N = 30, and
-    N_MAX_CR = 322 is the longest horizon one block holds."""
-    assert admm_cuda.lane_smem_bytes(30, True) == 17248
+    """A CR lane holds 61 floats a stage, 30 a padded stage and 30 an odd
+    stage of any level in shared memory (csrc/admm_core.cuh, lane_floats):
+    14,416 bytes at N = 30, and N_MAX_CR = 453 is the longest horizon one
+    block holds."""
+    assert admm_cuda.lane_smem_bytes(30, True) == 14416
     assert admm_cuda.lane_smem_bytes(30) == 14016
-    assert admm_cuda.N_MAX_CR == 322 and admm_cuda.N_MAX == 513
-    assert admm_cuda.lane_smem_bytes(322, True) <= 232448 \
-        < admm_cuda.lane_smem_bytes(323, True)
-    admm_cuda._check_horizon(322, True)
+    assert admm_cuda.N_MAX_CR == 453 and admm_cuda.N_MAX == 513
+    assert admm_cuda.lane_smem_bytes(453, True) <= 232448 \
+        < admm_cuda.lane_smem_bytes(454, True)
+    admm_cuda._check_horizon(453, True)
     admm_cuda._check_horizon(513, False)
-    with pytest.raises(ValueError, match="cyclic reduction kernel's 1..322"):
-        admm_cuda._check_horizon(323, True)
+    with pytest.raises(ValueError, match="cyclic reduction kernel's 1..453"):
+        admm_cuda._check_horizon(454, True)
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,27 @@ def test_launch_check_raises():
         kernels.check_launch(9, "k")
 
 
+def test_cr_lane_layout_fits_sixteen_lanes_per_sm():
+    """The CR lane mirrors csrc/admm_core.cuh (lane_floats): 61 floats a
+    stage, 25 + 5 a padded stage, 15 + 15 an odd stage of any level, the
+    total rounded up to 16 bytes; the Schur lane is unchanged.  At N = 30
+    two blocks of eight CR lanes, with 1 KB each for the runtime, fit in
+    an SM's 233,472 bytes of shared memory."""
+    from multi_purpose_mpc_tpu_torch.ops.cyclic_reduction import padded_stages
+
+    for N in (1, 2, 7, 8, 30, 31, 60, 255, admm_cuda.N_MAX_CR):
+        S, M = N + 1, padded_stages(N + 1)
+        levels = M.bit_length()  # log2(M + 1)
+        floats = 61 * S + (25 + 5) * M + (15 + 15) * (M - levels)
+        assert admm_cuda.lane_smem_bytes(N, True) == 4 * (-(-floats // 4) * 4)
+    assert admm_cuda.lane_smem_bytes(30, True) == 14416
+    assert 2 * (8 * 14416 + 1024) <= 233472 < 4 * (4 * 14416 + 1024)
+    assert admm_cuda.N_MAX_CR == 453
+    assert admm_cuda.lane_smem_bytes(453, True) <= 232448 \
+        < admm_cuda.lane_smem_bytes(454, True)
+    assert admm_cuda.lane_smem_bytes(30) == 14016 and admm_cuda.N_MAX == 513
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     blk = torch.zeros((2, 30, corridor_cuda.block_width(8)))
     with pytest.raises(ValueError):
@@ -480,39 +501,67 @@ def _cr(args):
             if isinstance(a, SolverConfig) else a for a in args]
 
 
+CR_CASES = [(N, B) for N in (1, 2, 8, 30, 31, 32, 60, admm_cuda.N_MAX_CR)
+            for B in (1, 33, 256)] + [(30, 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 33, 256])
-@pytest.mark.parametrize("N", [1, 8, 30, 31, 60])
+@pytest.mark.parametrize("N,B", CR_CASES)
 def test_k1_k3_cr_bitwise_equal_plain(cuda_device, N, B):
-    """N = 30 fills the 31 padded stages exactly, N = 8 pads 9 to 15,
-    N = 31 pads 32 to 63 and N = 60 pads 61 to 63 (32 even stages on the
-    first level).  Lane 0 carries a NaN from B = 33 on: it stays in its lane."""
+    """N = 1 and 2 pad to M = 3 (one level), N = 8 pads 9 to 15, N = 30
+    fills the 31 padded stages exactly, N = 31 and 32 pad to 63 and N = 60
+    pads 61 to 63 (32 even stages on the first level: six rounds of the
+    solve's groups), N_MAX_CR pads to 511 (one lane a block).  Every case
+    has a NaN lane (lane B // 2) that stays in its lane; at B = 1 the clean
+    lane is checked first."""
     args = _cr(_k1_random(N, B, 10 * N + B, cuda_device))
     sq, warm, solver = _cr(_k3_random(N, B, 10 * N + B, cuda_device))
-    if B > 1:
-        args[0] = args[0].clone()
-        args[0][0, N // 2] = float("nan")
-        sq.qv[0, N // 2, 0] = float("nan")
-    n1 = admm_cuda.solve_mpc_qp_fused_cuda.launches_cr
-    n3 = admm_cuda.solve_ltv_qp_structured_cuda.launches_cr
-    ker = admm_cuda.solve_mpc_qp_fused_cuda(*args)
-    ref = admm_cuda.solve_mpc_qp_fused_plain(*args)
-    ker3 = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
-    ref3 = admm_cuda.solve_ltv_qp_structured_plain(sq, warm, solver)
-    torch.cuda.synchronize()
-    assert admm_cuda.solve_mpc_qp_fused_cuda.launches_cr == n1 + 1
-    assert admm_cuda.solve_ltv_qp_structured_cuda.launches_cr == n3 + 1
-    names = ("W", "Zw", "Yeq", "Yw", "rho", "r_prim", "r_dual", "floor")
-    for name, a, b in zip(names, ker, ref):
-        assert _same_bits(a, b), f"K1-CR {name}"
-    for name, a, b in zip(names, ker3, ref3):
-        assert _same_bits(a, b), f"K3-CR {name}"
-    clean = slice(1, None) if B > 1 else slice(None)
-    assert torch.isfinite(ker[0][clean]).all()
-    assert torch.isfinite(ker3[0][clean]).all()
-    if B > 1:
-        assert not torch.isfinite(ker[0][0]).all()
-        assert not torch.isfinite(ker3[0][0]).all()
+    nan_lane = B // 2
+    runs = [False, True] if B == 1 else [True]
+    for dirty in runs:
+        if dirty:
+            args[0] = args[0].clone()
+            args[0][nan_lane, N // 2] = float("nan")
+            sq.qv[nan_lane, N // 2, 0] = float("nan")
+        n1 = admm_cuda.solve_mpc_qp_fused_cuda.launches_cr
+        n3 = admm_cuda.solve_ltv_qp_structured_cuda.launches_cr
+        ker = admm_cuda.solve_mpc_qp_fused_cuda(*args)
+        ref = admm_cuda.solve_mpc_qp_fused_plain(*args)
+        ker3 = admm_cuda.solve_ltv_qp_structured_cuda(sq, warm, solver)
+        ref3 = admm_cuda.solve_ltv_qp_structured_plain(sq, warm, solver)
+        torch.cuda.synchronize()
+        assert admm_cuda.solve_mpc_qp_fused_cuda.launches_cr == n1 + 1
+        assert admm_cuda.solve_ltv_qp_structured_cuda.launches_cr == n3 + 1
+        names = ("W", "Zw", "Yeq", "Yw", "rho", "r_prim", "r_dual", "floor")
+        for name, a, b in zip(names, ker, ref):
+            assert _same_bits(a, b), f"K1-CR {name}"
+        for name, a, b in zip(names, ker3, ref3):
+            assert _same_bits(a, b), f"K3-CR {name}"
+        clean = torch.ones(B, dtype=torch.bool, device=cuda_device)
+        if dirty:
+            clean[nan_lane] = False
+            assert not torch.isfinite(ker[0][nan_lane]).all()
+            assert not torch.isfinite(ker3[0][nan_lane]).all()
+        assert torch.isfinite(ker[0][clean]).all()
+        assert torch.isfinite(ker3[0][clean]).all()
+
+
+# the CR kernels' resident lanes per SM at N = 30 (PERF.md section 6): the
+# lane's 14,416 bytes of shared memory and 128 registers a thread let 16
+# lanes share an SM
+CR_LANES_PER_SM_N30 = 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "structured"])
+def test_cr_resident_lanes_per_sm(cuda_device, kernel):
+    lanes, per_sm = admm_cuda.occupancy(kernel, 30, True)
+    assert per_sm == CR_LANES_PER_SM_N30, (lanes, per_sm)
+    assert lanes * admm_cuda.lane_smem_bytes(30, True) <= 232448
+    # Schur keeps its four lanes a block
+    assert admm_cuda.occupancy(kernel, 30, False)[0] == 4
+    # the longest CR horizon still launches: one lane a block
+    assert admm_cuda.occupancy(kernel, admm_cuda.N_MAX_CR, True)[0] >= 1
 
 
 @pytest.mark.cuda

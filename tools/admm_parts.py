@@ -7,15 +7,16 @@ Builds four variants of ``csrc/admm_fused.cu`` into a temporary directory:
 the kernel as it is, and the kernel with the stage substitutions
 (``substitute``), the Schur factorisation (``factor``) or the
 stage-parallel work of an iteration (right-hand side, projection, dual
-updates) returning at once.  With ``--cr`` the kernel runs its
-cyclic-reduction stage solver (``SolverConfig(stage_solver="cr")``) and
-the variants switch off its solve (``cr_solve``) and its factorisation
-(``cr_factor``) instead.  Each variant is timed in its own process (a
-library is loaded once per process) with CUDA events at B = 1, 1024 and
-4096 on the same synthetic inputs, at the production solver budget.  A
-switched-off variant computes nothing meaningful; only its time is read:
-the difference to the full kernel is that part's share.  Prints one line
-per variant and the card's name and power limit.
+updates: ``iteration`` keeps only its stage solve) returning at once.
+With ``--cr`` the kernel runs its cyclic-reduction stage solver
+(``SolverConfig(stage_solver="cr")``) and the variants switch off its
+solve (``cr_solve``), its factorisation (``cr_factor``) and the rest of
+its iteration (``cr_iteration``) instead.  Each variant is timed in its
+own process (a library is loaded once per process) with CUDA events at
+B = 1, 1024 and 4096 on the same synthetic inputs, at the production
+solver budget.  A switched-off variant computes nothing meaningful; only
+its time is read: the difference to the full kernel is that part's
+share.  Prints one line per variant and the card's name and power limit.
 """
 
 import os
@@ -29,21 +30,19 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CORE = REPO / "multi_purpose_mpc_tpu_torch" / "csrc"
 BATCHES = (1, 1024, 4096)
 
-# variant -> (function signature line, line inserted after it), per stage
-# solver
-STAGE_PARALLEL_OFF = ("float rho_eq) {\n  // right-hand side", None)
+# variant -> (the text that opens the function, and the statement its body
+# becomes: None returns at once), per stage solver
 OFF = {
-    "substitute off": ("void substitute(const Lane& L) {",
-                       "  if (L.N > 0) return;"),
-    "factor off": ("void factor(const Lane& L) {", "  if (L.N > 0) return;"),
-    "stage-parallel work off": STAGE_PARALLEL_OFF,
+    "substitute off": ("void substitute(const Lane& L) {", None),
+    "factor off": ("void factor(const Lane& L) {", None),
+    "stage-parallel work off": ("void iteration(const Lane& L,",
+                                "  substitute(L);"),
 }
 OFF_CR = {
-    "cr_solve off": ("void cr_solve(const Lane& L) {",
-                     "  if (L.N > 0) return;"),
-    "cr_factor off": ("void cr_factor(const Lane& L) {",
-                      "  if (L.N > 0) return;"),
-    "stage-parallel work off": STAGE_PARALLEL_OFF,
+    "cr_solve off": ("void cr_solve(const Lane& L) {", None),
+    "cr_factor off": ("void cr_factor(const Lane& L) {", None),
+    "stage-parallel work off": ("void cr_iteration(const Lane& L,",
+                                "  cr_solve(L);"),
 }
 
 
@@ -53,15 +52,16 @@ def make_variant(root: pathlib.Path, name: str, off: dict) -> pathlib.Path:
     if name in off:
         path = src / "admm_core.cuh"
         text = path.read_text()
-        anchor, line = off[name]
+        anchor, body = off[name]
         assert text.count(anchor) == 1, anchor
-        if line is None:  # iteration() keeps only the stage solve
-            head, tail = text.split(anchor)
-            body_end = tail.index("\n}\n")
-            text = (head + "float rho_eq) {\n  if constexpr (CR) cr_solve(L);"
-                    " else substitute(L);" + tail[body_end:])
-        else:
-            text = text.replace(anchor, anchor + "\n" + line)
+        head, tail = text.split(anchor)
+        tail = anchor + tail
+        open_end = tail.index(") {\n") + 4  # the end of the signature
+        if body is None:
+            body = "  if (L.N > 0) return;"
+        else:  # the whole body replaced
+            tail = tail[:open_end] + tail[tail.index("\n}\n", open_end) + 1:]
+        text = head + tail[:open_end] + body + "\n" + tail[open_end:]
         path.write_text(text)
     return src
 
