@@ -97,13 +97,21 @@ the eager form.
     5's); a CR sweep (static grid,
     B = 4096 x 20, phase 10's weight rows: K3-CR = K2 = 20 and phase 10's
     gates); an N = 60 CR fleet (B = 1024 x 30, phase 18's bars);
-20. the float64 oracle's lap (``tests/data/torch_oracle_lap.npz``, written
-    by ``tools/oracle_lap.py``): tests/test_parity.py's strictly convex
-    scenario rebuilt on the card, all 204 oracle pre-step states as one
-    fleet through one ``simulate_fleet`` step (K2 = K1 = 1 launch), held
-    to tests/test_torch_oracle.py's bars (tests/test_parity.py:120-150);
-    the speed command at ``oracle_lap.PINCH_STEP`` is printed, not held
-    (the CPU test's strict xfail);
+20. the float64 oracle in the JAX package's four oracle-held task modes
+    (fixtures ``tests/data/torch_oracle_*.npz``, written by
+    ``tools/oracle_lap.py --scenario ...``), each scenario rebuilt on the
+    card: for ``convex`` (tests/test_parity.py), ``time_optimal``
+    (tests/test_parity_topt.py) and ``real_seam`` (Real_Track's
+    non-circular seam, tests/test_parity_real.py) every oracle pre-step
+    state as one lane of one ``simulate_fleet`` step, through K2 + K1
+    (K1 = K2 = 1 launch) and again through K2 + K1-CR (K1-CR = K2 = 1),
+    held to the JAX test's bars (``oracle_lap.BARS``; the convex speed
+    command at ``oracle_lap.PINCH_STEP`` is printed, not held: the CPU
+    test's strict xfail); the production free run (T = 300, K1 = K2 = 300)
+    against the oracle's at tests/test_parity_production.py's bars; the
+    tracking and time-optimal laps of tests/test_modes.py (T = 400 each)
+    at its bars; one ``[oracle]`` line per scenario and solver, one for
+    the production run, a ``[modes]`` line;
 21. the reference's two-call loop through the object API (``api.Map``,
     ``ReferencePath`` + ``compute_speed_profile``, ``BicycleModel``,
     ``MPC``, ``LidarModel``, built as tests/test_api.py's world fixture
@@ -1179,6 +1187,76 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
         dist.destroy_process_group()
 
 
+def oracle_phase(dev, card, reset_counts, read_counts, expect):
+    """Phase 20: the port held to the float64 oracle's fixtures
+    (``tools/oracle_lap.py``) on the card.  Each per-step scenario's
+    pre-step states go through one ``simulate_fleet`` step with K2 + K1
+    (Schur) and again with K2 + K1-CR; the production lap and the two mode
+    laps run the graphed ``simulate_closed_loop``.  Raises on any missed
+    bar but the convex scenario's exception step (printed, not held)."""
+    from multi_purpose_mpc_tpu_torch.config import SimConfig
+    from multi_purpose_mpc_tpu_torch.simulation import simulate_closed_loop
+    from tools import oracle_lap as ol
+
+    misses = []
+    for name in ol.PER_STEP:
+        t0 = time.perf_counter()
+        sc = ol.scenario(name, dev)
+        lap = dict(np.load(ol.fixture(name)))
+        for solver, counter in (("schur", "admm_fused"),
+                                ("cr", "admm_fused_cr")):
+            t1 = time.perf_counter()
+            reset_counts()
+            par = ol.parity(ol.port_step(sc, lap, solver), lap, name)
+            launches = read_counts()
+            print(f"[oracle] {name}, {solver}: {ol.describe(par)}; launches "
+                  f"{launches}; {time.perf_counter() - t1:.2f} s "
+                  f"({time.perf_counter() - t0:.2f} s with the scenario) on "
+                  f"{card}", flush=True)
+            if launches != expect(**{counter: 1, "corridor_select": 1}):
+                raise AssertionError(f"oracle {name}, {solver} launches "
+                                     f"{launches}")
+            misses += [f"{name}, {solver}: {m}" for m in ol.misses(par, name)]
+
+    t0 = time.perf_counter()
+    sc = ol.scenario("production", dev)
+    lap = dict(np.load(ol.fixture("production")))
+    steps = sc["T"]
+    reset_counts()
+    res = simulate_closed_loop(sc["grid"], sc["path"], sc["cfg"], sc["model"],
+                               SimConfig(max_steps=steps))
+    launches = read_counts()
+    fr = ol.free_run(res, lap)
+    print(f"[oracle] production free run, {steps} steps graphed: lap "
+          f"{fr['steps']} steps (oracle {fr['oracle_steps']}), done "
+          f"{fr['done']}, accept {fr['accept']:.4f}, max pose distance from "
+          f"the oracle's run {fr['pose_10']:.4f} m over 10 steps, "
+          f"{fr['pose_40']:.4f} m over 40; launches {launches}; "
+          f"{time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    if launches != expect(admm_fused=steps, corridor_select=steps):
+        raise AssertionError(f"production lap launches {launches}")
+    misses += [f"production: {m}" for m in ol.free_run_misses(fr)]
+
+    t0 = time.perf_counter()
+    ms = ol.mode_scenario(dev)
+    reset_counts()
+    m = ol.mode_laps(ms)
+    launches = read_counts()
+    tr, to = m["tracking"], m["time_optimal"]
+    print(f"[modes] {ol.MODE_T} steps each, graphed: tracking lap "
+          f"{tr['lap']} steps (done {tr['done']}), time-optimal lap "
+          f"{to['lap']} steps (done {to['done']}, failed {to['failed']}), "
+          f"mean v {to['v_mean']:.4f}, max |e_y| {to['max_ey']:.4f} m "
+          f"(bar {m['ey_bar']:.4f}); launches {launches}; "
+          f"{time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    if launches != expect(admm_fused=2 * ol.MODE_T,
+                          corridor_select=2 * ol.MODE_T):
+        raise AssertionError(f"mode laps launches {launches}")
+    misses += [f"modes: {m}" for m in ol.mode_misses(m)]
+    if misses:
+        raise AssertionError(f"oracle bars missed on the card: {misses}")
+
+
 def main():
     # ---- phase 1: device ----
     if not torch.cuda.is_available():
@@ -2213,44 +2291,8 @@ def main():
             and h["max_ey"] < 0.25):
         raise AssertionError(f"N = {N60} CR fleet misses its bars: {h}")
 
-    # ---- phase 20: the float64 oracle's lap ----
-    from tools import oracle_lap as ol
-
-    t0 = time.perf_counter()
-    osc = ol.scenario(dev)
-    lap = dict(np.load(ol.FIXTURE))
-    reset_counts()
-    par = ol.parity(ol.port_step(osc, lap), lap)
-    oracle_launches = read_counts()
-    print(f"[oracle] {par['steps']} oracle pre-step states through one "
-          f"simulate_fleet step: launches {oracle_launches}, "
-          f"{time.perf_counter() - t0:.2f} s with the scenario; acceptance "
-          f"disagrees at {par['disagree'].tolist()}, both accept "
-          f"{par['both']:.4f}, tight {par['tight']}; max|diff| x' "
-          f"{par['x_max']:.3e}, y' {par['y_max']:.3e}, s' {par['s_max']:.3e},"
-          f" v {par['v_max']:.3e} (step {par['v_argmax']}); v at pinch step "
-          f"{ol.PINCH_STEP} {par['v_pinch_port']:.6f}, |diff| "
-          f"{par['v_pinch']:.3e} (not held); delta median "
-          f"{par['delta_median']:.2e} tight {par['delta_tight_max']:.2e} all "
-          f"{par['delta_max']:.2e}; psi' median {par['psi_median']:.2e} tight "
-          f"{par['psi_tight_max']:.2e} all {par['psi_max']:.2e} on {card}",
-          flush=True)
-    if oracle_launches != expect(admm_fused=1, corridor_select=1):
-        raise AssertionError(f"oracle phase launches {oracle_launches}")
-    misses = [f"acceptance disagrees at {par['disagree'].tolist()}"
-              ] if par["disagree"].size else []
-    misses += [f"{k} {par[k]:.3e} > {ol.TRAJ_BAR}"
-               for k in ("x_max", "y_max", "s_max", "v_max")
-               if par[k] > ol.TRAJ_BAR]
-    if par["both"] <= ol.BOTH_MIN or par["tight"] < ol.TIGHT_MIN * par["steps"]:
-        misses.append(f"both {par['both']:.4f}, tight {par['tight']}")
-    for name, b_tight, b_all in ol.ANGLE_BARS:
-        for key, bar in ((f"{name}_median", ol.MEDIAN_BAR),
-                         (f"{name}_tight_max", b_tight), (f"{name}_max", b_all)):
-            if par[key] > bar:
-                misses.append(f"{key} {par[key]:.3e} > {bar}")
-    if misses:
-        raise AssertionError(f"oracle lap bars missed on the card: {misses}")
+    # ---- phase 20: the float64 oracle in four task modes ----
+    oracle_phase(dev, card, reset_counts, read_counts, expect)
 
     # ---- phase 21: the two-call loop through the object API ----
     api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,

@@ -20,8 +20,13 @@ Every product sums its terms left to right in the JAX package's order and
 skips the structural zeros it skips (the u-rows of the couplings), and the
 5x5 inverses are the Gauss-Jordan of :func:`.ltv_qp._gj_inverse`: the CUDA
 kernels (``csrc/admm_core.cuh``, ``cr_factor`` / ``cr_solve``) repeat this
-arithmetic operation for operation and agree with it bit for bit.  Every
-tensor carries a leading fleet axis B.
+arithmetic operation for operation and agree with it bit for bit.  The
+blocks come from ``ltv_qp._build_blocks``, whose x-row diagonal sums as the
+JAX package's Schur kernel sums it, rho_eq AtA + (diag + rho_eq), where its
+CR kernel sums (rho_eq AtA + diag) + rho_eq: one rounding apart, which
+moves the unconverged pinch-point lane of tests/test_torch_cr.py as one
+ulp on one input does (``tools/cr_lane.py``).  Every tensor carries a
+leading fleet axis B.
 """
 
 from __future__ import annotations

@@ -283,13 +283,27 @@ def test_cr_rollout_matches_schur_rollout(sc):
     assert abs(int(cr.log.ok.sum()) - int(schur.log.ok.sum())) <= 1
 
 
-@pytest.mark.slow
-@pytest.mark.kernel
-def test_fused_cr_matches_jax_fused_cr_kernel(sc):
-    """K1's CR plain version against the JAX fused CR kernel in interpret
-    mode (minutes on the CPU), Sim_Track B = 8, N = 30, with the bars of
-    tests/test_admm_pallas.py's fused tests: status equal, r_prim within
-    1e-3, U[:, 0, 0] within 3e-3."""
+# The lane of the batch below (lane 5: wp_id 65, e_y 0.025 m) whose speed
+# command no pair of float32 solvers holds to 3e-3: its QP is certified
+# infeasible (violation floor 8.017e-2, far above feas_tol 5e-3, so every
+# solver rejects it: status MAX_ITER, r_prim 7.27e-2) and the budget leaves
+# its least-violation point unconverged (r_dual 28-104), so rounding sets
+# U[0, 0].  On the same inputs (tools/cr_lane.py): the port's CR 0.972058,
+# its Schur 0.981117, the JAX CR kernel 0.978339, the JAX Schur kernel
+# 0.978855, the JAX XLA solver 0.984365, a float64 ADMM to 1e-10 0.974681
+# and the port's CR algorithm in float64 0.979165; one ulp on one input
+# moves the port's CR across 0.972058-0.987023.  At 30 x 1 + 0 the port's
+# CR and the JAX CR kernel agree to 5e-6 (0.974684 / 0.974689).  Summing the
+# x-row diagonal of D in the JAX CR kernel's order moves the port's CR to
+# 0.975421, and then the port's CR and Schur part by 6.84e-3 on the same
+# lane from the port's own inputs (test_fused_cr_matches_fused_schur).
+PINCH_LANE = 5
+
+
+@pytest.fixture(scope="module")
+def fused_cr_pair(sc):
+    """K1's CR plain version and the JAX fused CR kernel in interpret mode
+    (minutes on the CPU) on Sim_Track B = 8, N = 30: ``(out, ref)``."""
     from multi_purpose_mpc_tpu.models.bicycle import init_car_state as jinit
     from multi_purpose_mpc_tpu.mpc import (kappa_predictions as jkappa,
                                            mpc_corridor, mpc_locate as jlocate)
@@ -319,8 +333,35 @@ def test_fused_cr_matches_jax_fused_cr_kernel(sc):
         interop.solver_carry(states.solver),
         dataclasses.replace(tcfg.solver, stage_solver="cr"), tcfg,
         sc["tmodel"])
+    return out, ref
+
+
+@pytest.mark.slow
+@pytest.mark.kernel
+def test_fused_cr_matches_jax_fused_cr_kernel(fused_cr_pair):
+    """K1's CR plain version against the JAX fused CR kernel in interpret
+    mode, Sim_Track B = 8, N = 30, with the bars of
+    tests/test_admm_pallas.py's fused tests: status equal and r_prim within
+    1e-3 on every lane, U[:, 0, 0] within 3e-3 on every lane but
+    :data:`PINCH_LANE` (the next test)."""
+    out, ref = fused_cr_pair
     np.testing.assert_array_equal(out.status.numpy(), np.asarray(ref.status))
     np.testing.assert_allclose(out.r_prim.numpy(), np.asarray(ref.r_prim),
                                atol=1e-3)
-    np.testing.assert_allclose(out.U[:, 0, 0].numpy(),
-                               np.asarray(ref.U[:, 0, 0]), atol=3e-3)
+    rest = np.arange(8) != PINCH_LANE
+    np.testing.assert_allclose(out.U[:, 0, 0].numpy()[rest],
+                               np.asarray(ref.U[:, 0, 0])[rest], atol=3e-3)
+
+
+@pytest.mark.slow
+@pytest.mark.kernel
+@pytest.mark.xfail(strict=True, reason=(
+    "lane 5 is a certified-infeasible pinch-point QP (floor 8.017e-2, "
+    "rejected by every solver) left unconverged by the budget: its speed "
+    "command rides on float32 rounding (port CR 0.972058, JAX CR kernel "
+    "0.978339, JAX XLA 0.984365, float64 0.974681; one ulp on one input "
+    "moves the port across 0.972058-0.987023), test_torch_cr.PINCH_LANE"))
+def test_fused_cr_speed_at_pinch_lane(fused_cr_pair):
+    out, ref = fused_cr_pair
+    assert abs(float(out.U[PINCH_LANE, 0, 0])
+               - float(ref.U[PINCH_LANE, 0, 0])) <= 3e-3

@@ -18,14 +18,13 @@ steps (r_prim < 1e-4, >= 80 % of the lap), <= 1e-1 / 5e-2 on every step
 both accept.  Imports no JAX.
 """
 
-import os
-
 import numpy as np
 import pytest
 
-from tools.oracle_lap import (ANGLE_BARS, BOTH_MIN, FIXTURE, MEDIAN_BAR,
-                              TIGHT_MIN, TRAJ_BAR, inputs_sha256, parity,
-                              port_step, run_oracle, scenario)
+from tools.oracle_lap import (BARS, load_fixture, parity, port_step,
+                              run_oracle, scenario)
+
+BAR = BARS["convex"]
 
 
 @pytest.fixture(scope="module")
@@ -35,11 +34,7 @@ def sc():
 
 @pytest.fixture(scope="module")
 def lap(sc):
-    assert os.path.exists(FIXTURE), "regenerate with tools/oracle_lap.py"
-    data = dict(np.load(FIXTURE))
-    assert str(data["inputs_sha256"]) == inputs_sha256(sc), (
-        "the oracle's inputs changed: regenerate with tools/oracle_lap.py")
-    return data
+    return load_fixture(sc)
 
 
 @pytest.fixture(scope="module")
@@ -53,12 +48,12 @@ def test_oracle_lap_acceptance_and_angles(par):
     assert par["steps"] >= 200
     assert par["disagree"].size == 0, \
         f"acceptance disagrees at steps {par['disagree']}"
-    assert par["both"] > BOTH_MIN
+    assert par["both"] > BAR.both_min
     # 3. steering / heading: pinned to the QP's cost resolution, not 1e-3
-    assert par["tight"] >= TIGHT_MIN * par["steps"], \
+    assert par["tight"] >= BAR.tight_min * par["steps"], \
         f"only {par['tight']}/{par['steps']} well-posed steps"
-    for name, b_tight, b_all in ANGLE_BARS:
-        assert par[f"{name}_median"] <= MEDIAN_BAR, (name, par)
+    for name, b_median, _, b_tight, b_all in BAR.angles:
+        assert par[f"{name}_median"] <= b_median, (name, par)
         assert par[f"{name}_tight_max"] <= b_tight, (name, par)
         assert par[f"{name}_max"] <= b_all, (name, par)
 
@@ -68,8 +63,8 @@ def test_oracle_lap_trajectory_1e3(par, coord):
     # 2. THE BAR: next pose, progress and the speed command within 1e-3 on
     #    every step both accept, obstacle steps included (the speed command
     #    at PINCH_STEP: the next test)
-    assert par[f"{coord}_max"] <= TRAJ_BAR, \
-        (f"{coord}: max |diff| {par[f'{coord}_max']:.3e} > {TRAJ_BAR} at "
+    assert par[f"{coord}_max"] <= BAR.traj, \
+        (f"{coord}: max |diff| {par[f'{coord}_max']:.3e} > {BAR.traj} at "
          f"step {par[f'{coord}_argmax']}")
 
 
@@ -80,8 +75,8 @@ def test_oracle_lap_trajectory_1e3(par, coord):
     "0.848369, oracle 0.85; one ulp on one input moves the port across "
     "0.848577-0.852040), tools/oracle_lap.PINCH_STEP"))
 def test_oracle_lap_speed_at_pinch_point(par):
-    assert par["v_pinch"] <= TRAJ_BAR, \
-        f"v at step 100: |diff| {par['v_pinch']:.3e} > {TRAJ_BAR}"
+    assert par["v_pinch"] <= BAR.traj, \
+        f"v at step 100: |diff| {par['v_pinch']:.3e} > {BAR.traj}"
 
 
 @pytest.mark.slow

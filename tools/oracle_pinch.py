@@ -1,7 +1,7 @@
 """One step of the float64 oracle's lap through four float32 solvers, and
 how far float32 rounding alone moves the port's answer there.
 
-    JAX_PLATFORMS=cpu python tools/oracle_pinch.py [STEP ...]   # default 100
+    JAX_PLATFORMS=cpu python tools/oracle_pinch.py [--cr] [STEP ...]   # default 100
 
 For each step of ``tests/data/torch_oracle_lap.npz`` (tools/oracle_lap.py)
 the QP is built from the oracle's pre-step state by the port (locate,
@@ -16,6 +16,8 @@ horizon block, corridor selection; a fresh solver carry) and solved by
 then (a) once more on 16 copies of the QP, each with one input moved by one
 ulp (e_y, e_psi, one v_ref or one corridor lower bound), and in float64.
 Prints the speed command v and r_prim of each beside the oracle's v.
+``--cr``: (a), its one-ulp moves and its float64 run, and (b), take the
+cyclic-reduction stage solver (K1-CR's plain version, the JAX CR kernel).
 Takes ~10 min on the CPU (the interpret-mode kernel).  Imports JAX: a tool
 for the parity record, not part of the port.
 """
@@ -80,9 +82,12 @@ def fused(sc, q, lb=None):
         q["kp"], q["warm"], cfg.solver, cfg, sc["model"])[0]
 
 
-def main(steps):
+def main(steps, cr=False):
     sc = scenario()
     lap = dict(np.load(FIXTURE))
+    if cr:
+        sc["cfg"] = dataclasses.replace(sc["cfg"], solver=dataclasses.replace(
+            sc["cfg"].solver, stage_solver="cr"))
     cfg, model = sc["cfg"], sc["model"]
     table = static_horizon_table(sc["grid"], sc["path"], cfg, model)
     q = qp_inputs(sc, lap, steps, table)
@@ -96,7 +101,8 @@ def main(steps):
         jcfg, Q=cfg.Q, QN=cfg.QN, R=cfg.R, solver_backend="xla",
         solver=JSolver(iterations=cfg.solver.iterations,
                        rho_updates=cfg.solver.rho_updates,
-                       polish_iters=cfg.solver.polish_iters))
+                       polish_iters=cfg.solver.polish_iters,
+                       stage_solver=cfg.solver.stage_solver))
     J = lambda t: jnp.asarray(t.numpy())
     x0 = torch.stack([q["e_y"], q["e_psi"], torch.zeros_like(q["e_y"])], -1)
     B = len(steps)
@@ -117,8 +123,10 @@ def main(steps):
         sol_c = xla(i)
         print(f"step {step}: oracle v {lap['v'][step]:.6f}")
         for label, v, rp in (
-                ("(a) port fused plain (K1)", sol_a.U[i, 0, 0], sol_a.r_prim[i]),
-                ("(b) JAX fused TPU kernel, interpret", sol_b.U[i, 0, 0],
+                (f"(a) port fused plain ({'K1-CR' if cr else 'K1'})",
+                 sol_a.U[i, 0, 0], sol_a.r_prim[i]),
+                (f"(b) JAX fused {'CR ' if cr else ''}TPU kernel, interpret",
+                 sol_b.U[i, 0, 0],
                  sol_b.r_prim[i]),
                 ("(c) JAX XLA solver", sol_c.U[0, 0], sol_c.r_prim),
                 ("(d) port solve_ltv_qp", sol_d.U[i, 0, 0], sol_d.r_prim[i])):
@@ -150,4 +158,5 @@ def main(steps):
 
 
 if __name__ == "__main__":
-    main([int(a) for a in sys.argv[1:]] or [100])
+    args = sys.argv[1:]
+    main([int(a) for a in args if a != "--cr"] or [100], cr="--cr" in args)
