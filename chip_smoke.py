@@ -15,7 +15,7 @@ graphed; phase 23 holds each path's first and repeated calls against
 the eager form.
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
-2. build: compiles the six CUDA kernels from
+2. build: compiles the seven CUDA kernels from
    ``multi_purpose_mpc_tpu_torch/csrc``, one nvcc per source, in parallel;
 3. K2 (corridor selection) vs its plain twin, bitwise (NaN equal to NaN)
    or fail: the horizon blocks of 4096 feasible starts, their first 1 and
@@ -67,15 +67,26 @@ the eager form.
     per lane, 60 % hits, a quarter of them on the lane's scanline samples;
 14. K6 (the same on bit-packed maps) vs its plain version and vs K5,
     bitwise, on the (4096, 16, 500) packed grids; pad rows stay free;
+14b. K7 (the ``cells`` scan's sweep) vs its plain version, bitwise: the
+    feasible starts' poses at B = 1, 33, 1024 and 4096 on the per-waypoint
+    (200, 5120) table and on the global boundary-cell table, and
+    ``tests/scan_ties.tie_world``'s poses (exact distance ties on a beam)
+    on both of its tables; kernel, plain and bound ms at B = 1, 1024 and
+    4096, the bound's two operation counts (the per-cell work over every
+    candidate, the pair tests of the in-range cells);
 15. LiDAR fleet, known map = true map, B = 4096 x 50 steps, bench.py's
-    LiDAR, "auto" backends (cells scan, packed maps): K6 = K2 = K1 = 50
-    launches, K4 = K5 = K3 = 0; the log bitwise equal to phase 9's; the
-    maps stay the true grid; health gates; a CUDA-event step breakdown;
+    LiDAR, "auto" backends (cells scan, packed maps): K7 = K6 = K2 = K1 =
+    50 launches, K4 = K5 = K3 = 0; the log bitwise equal to phase 9's; the
+    maps stay the true grid; health gates; a CUDA-event step breakdown
+    (its "scan (cells)" part is K7 with the scan's torch prologue and
+    epilogue);
 16. discovery fleet from an all-free known map, B = 1024 x 50 steps, packed
-    then fused maps: cells found per lane, logs and final maps of the two
-    runs bitwise equal, health gates; a step breakdown;
-17. one car, ``simulate_lidar_loop``, 40 steps from an all-free known map:
-    > 200 cells found, s > 1 m, not failed, max |e_y| < 0.25;
+    then fused maps (K7 = K6 or K5 = K2 = K1 = 50): cells found per lane,
+    logs and final maps of the two runs bitwise equal, health gates; a
+    step breakdown;
+17. one car, ``simulate_lidar_loop``, 40 steps from an all-free known map
+    (K7 = K6 = K2 = K1 = 40): > 200 cells found, s > 1 m, not failed, max
+    |e_y| < 0.25;
 18. horizon N = 60, 30 steps: tests/test_horizon.py's three starts with
     its bars (every lane progresses > 0.5 m, no failed lane, accept > 0.8,
     max |e_y| < 0.25); then ``simulate_fleet`` at B = 1024 from
@@ -139,10 +150,10 @@ the eager form.
     (tests/torch_dist_worker.py) with a timeout, the kernels built by this
     process: phase 16's packed discovery fleet split over the ranks, each
     rank's log and final maps bitwise equal to the same lanes of phase 16's
-    run (K6 = K2 = K1 = 50 a rank), and a shared-grid fleet with
+    run (K7 = K6 = K2 = K1 = 50 a rank), and a shared-grid fleet with
     ``clear_free`` (B = 1024 x 50, dense write-back, the masks pooled by
     one all-reduce per mask class a step), both ranks' maps and logs
-    bitwise equal to an unsharded run here (K4 = K2 = K1 = 50); (c) 25
+    bitwise equal to an unsharded run here (K7 = K4 = K2 = K1 = 50); (c) 25
     static steps, ``save_fleet_state``, ``load_fleet_state``, 25 steps
     (a repeated call: it captures nothing): the log bitwise equal to phase
     5's; (d) a ``[profiling]`` line:
@@ -161,7 +172,8 @@ the eager form.
     weights for the sweep), which captures nothing and grows the
     allocator's reserve by nothing, each against the eager form
     (``graphs.disable_capture()``) on its own inputs: logs, final states
-    and maps bitwise equal, the same launches; first call, repeated call,
+    and maps bitwise equal, the same launches (K7 once a step on every
+    LiDAR path); first call, repeated call,
     eager and replay times, capture seconds and peak memory per path; the
     object API's lap and its LiDAR loop (``scan`` and ``drive`` replay
     graphs too): controls and measurements bitwise equal, with the median
@@ -171,7 +183,8 @@ Prints a JSON line with each kernel's launches (its path's phase and
 phase 22), error, times and bound
 (``bound_ms`` from the bytes each kernel must move and the float32
 operations of its plain version, counted in this run, against the H100
-SXM's 3.35 TB/s and 67 TFLOP/s), the card's name and power limit, and as
+SXM's 3.35 TB/s and 67 TFLOP/s; for K7 the operations its inputs need,
+``k7_ops``), the card's name and power limit, and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises (non-zero exit, no result line).  Imports no JAX.
@@ -392,6 +405,34 @@ def bound(bytes_: int, ops: int):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# K7's operations: per candidate cell, m2w (three a coordinate), the
+# packed id (a product, a sum, a conversion), dx and dy, the distance (two
+# products, a sum, a square root) and the range test (two comparisons and
+# their conjunction); per pair test of an in-range cell and a beam, along
+# (two products, a sum), |perp| (two products, a difference, the absolute
+# value), the two comparisons, their conjunction and the running minimum's
+# comparison
+K7_CELL_OPS = 18
+K7_PAIR_OPS = 11
+
+
+def k7_ops(grid, table, wp_id, cx, cy, ux, uy, support, rng):
+    """K7's operations on these inputs, ``(per-cell, pair tests)``: the
+    per-cell work over every lane's candidates, and the pair tests of the
+    cells in range only (a kernel that culls by range needs no others; the
+    padding dummies are never in range), the cells in range counted here
+    with the plain version's arithmetic."""
+    from multi_purpose_mpc_tpu_torch.ops.grid import m2w
+
+    rows = table[wp_id.long()] if table.dim() == 3 else table[None]
+    gx, gy = m2w(grid, rows[..., 0], rows[..., 1])
+    dx, dy = gx - cx[:, None], gy - cy[:, None]
+    d = torch.sqrt(dx * dx + dy * dy)
+    in_range = int(((d < rng) & (d > 0.0)).sum())
+    lanes, nb = ux.shape
+    return lanes * rows.shape[1] * K7_CELL_OPS, in_range * nb * K7_PAIR_OPS
 
 
 def repeat_obstacle(centre, wp: int, radius: float):
@@ -916,7 +957,8 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
     torch.cuda.synchronize()
     dt_shared = time.perf_counter() - t0
     count(read_counts(), expect(admm_fused=STEPS, corridor_select=STEPS,
-                                extract_occ=STEPS), "(b) unsharded shared")
+                                extract_occ=STEPS, scan_cells=STEPS),
+          "(b) unsharded shared")
     spec = dict(device="cuda", grid=grid, path=path, cfg=cfg, model=model,
                 lidar=s["lidar"], known=free, tasks=dict(
                     lanes=dict(kind="lidar", sim=dyn_sim, state=fleet16,
@@ -933,15 +975,16 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
         sl = slice(*out["lanes"]["lanes"])
         count(out["lanes"]["launches"], expect(
             admm_fused=STEPS, corridor_select=STEPS,
-            writeback_extract_packed=STEPS), f"(b) rank {r} per-lane")
+            writeback_extract_packed=STEPS, scan_cells=STEPS),
+            f"(b) rank {r} per-lane")
         same_log(out["lanes"]["result"].log, lanes_of(lane_ref.log, sl),
                  f"(b) rank {r} per-lane vs phase 16", static_log._fields)
         if not torch.equal(out["lanes"]["occ"], lane_occ[sl].cpu()):
             raise AssertionError(f"(b) rank {r}: per-lane maps differ from "
                                  "phase 16's")
         count(out["shared"]["launches"], expect(
-            admm_fused=STEPS, corridor_select=STEPS, extract_occ=STEPS),
-            f"(b) rank {r} shared")
+            admm_fused=STEPS, corridor_select=STEPS, extract_occ=STEPS,
+            scan_cells=STEPS), f"(b) rank {r} shared")
         same_log(out["shared"]["result"].log, lanes_of(shared_ref.log, sl),
                  f"(b) rank {r} shared vs unsharded", static_log._fields)
         if not torch.equal(out["shared"]["occ"], shared_occ.cpu()):
@@ -1034,8 +1077,9 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
     grows the allocator's reserve by nothing.  Times, capture seconds and
     peak memory of each form.
 
-    ``runs``: ``(label, run, lanes, steps)``, ``run(fresh)`` a rollout on
-    the first inputs or on the fresh ones; ``api_ctx``: :func:`api_world`'s
+    ``runs``: ``(label, run, lanes, steps[, once])``, ``run(fresh)`` a
+    rollout on the first inputs or on the fresh ones, ``once`` the kernels
+    it must launch once a step; ``api_ctx``: :func:`api_world`'s
     arguments; ``nccl_runs(mesh)``: the runs to make over an NCCL group at
     world size 1."""
     import torch.distributed as dist
@@ -1082,7 +1126,7 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
                                  f" graphed, {b['launches']} eager")
         return len(la)
 
-    def compare(label, run, lanes, steps):
+    def compare(label, run, lanes, steps, once=()):
         graphs.clear_cache()
         first = form(run, False, False)
         eager0 = form(run, False, True)
@@ -1106,6 +1150,9 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
         cap_s, first_s, replay_ms = graph_times(first["wall"], first["caps"],
                                                 steps)
         per_step = {k: v / steps for k, v in hit["launches"].items() if v}
+        if any(per_step.get(k) != 1 for k in once):
+            raise AssertionError(f"[graphs] {label}: launches a step "
+                                 f"{per_step}; {once} once a step expected")
         print(f"[graphs] {label}, B={lanes} x {steps} steps: {n} leaves "
               f"(logs, final state, maps) bitwise equal to the eager form's "
               f"for the first call and for the repeated call (fresh inputs "
@@ -1149,8 +1196,8 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
                 break
         return np.stack(out), ms
 
-    for label, run, lanes, steps in runs:
-        compare(label, run, lanes, steps)
+    for label, run, lanes, steps, *once in runs:
+        compare(label, run, lanes, steps, *once)
     pct = lambda a, q: float(np.percentile(a, q))
     for label, steps, lidar in (("API lap", API_LAP_STEPS, False),
                                 ("API LiDAR loop", API_LIDAR_STEPS, True)):
@@ -1179,8 +1226,9 @@ def graphs_phase(runs, api_ctx, nccl_runs, card, reset_counts, read_counts):
         # set-up: NCCL builds its communicator at the group's first
         # collective, which would otherwise fall in the first graphed call
         dist.all_reduce(torch.zeros(1, device="cuda"))
-        for label, run, lanes, steps in nccl_runs(global_fleet_mesh()):
-            compare(f"NCCL at world size 1, {label}", run, lanes, steps)
+        for label, run, lanes, steps, *once in nccl_runs(global_fleet_mesh()):
+            compare(f"NCCL at world size 1, {label}", run, lanes, steps,
+                    *once)
     finally:
         # the cached graphs hold the group's all-reduce: freed before it
         graphs.clear_cache()
@@ -1283,6 +1331,7 @@ def main():
     from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
         build_horizon_table, empty_segments, gather_horizon_block,
         horizon_block_from_segments, solver_inputs_from_block)
+    from multi_purpose_mpc_tpu_torch.ops import lidar as lidar_ops
     from multi_purpose_mpc_tpu_torch.ops.lidar import hit_pixels, scan_fleet
     from multi_purpose_mpc_tpu_torch.ops.ltv_qp import pack_qp
     from multi_purpose_mpc_tpu_torch.ops.path import build_reference_path
@@ -1299,13 +1348,13 @@ def main():
 
     # ---- phase 2: build ----
     names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ",
-             "writeback_extract", "writeback_extract_packed")
+             "writeback_extract", "writeback_extract_packed", "scan_cells")
     t0 = time.perf_counter()
     for name, sec in kernels.build_all(names).items():
         kernels.load(name)
         print(f"[build] {name}.cu -> {kernels.library_path(name)} in "
               f"{sec:.2f} s", flush=True)
-    print(f"[build] all six in {time.perf_counter() - t0:.2f} s wall",
+    print(f"[build] all seven in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
     counted = kernels.launch_counters()
 
@@ -1925,12 +1974,71 @@ def main():
     del stack, packed, args, hits
     torch.cuda.empty_cache()
 
-    # ---- phase 15: LiDAR fleet, known map = true map ----
+    # ---- phase 14b: K7 vs plain ----
     t0 = time.perf_counter()
-    cells = resolve_cell_table(grid, path, lidar, None, "cells")
+    glob_cells = lidar_ops.occupied_cell_table(grid.occ)
+    cells = resolve_cell_table(grid, path, lidar, glob_cells, "cells")
     torch.cuda.synchronize()
-    print(f"[lidar] cell table {tuple(cells.shape)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[lidar] cell tables: global {tuple(glob_cells.shape)}, per "
+          f"waypoint {tuple(cells.shape)} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    k7_in = lidar_ops.cells_prologue(grid, fleet.x, fleet.y, fleet.psi,
+                                     lidar)[1:]
+
+    def k7_args(n, table=cells):
+        cx, cy, ux, uy, sup = (t[:n].contiguous() for t in k7_in)
+        return (grid, table, fleet.wp_id[:n].contiguous(), cx, cy, ux, uy,
+                sup, lidar.range)
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from scan_ties import tie_world
+
+    ties = tie_world(dev)
+    k7_err = 0.0
+    k7_cases = [(f"feasible starts B={n}, {name} table {tuple(tb.shape)}",
+                 k7_args(n, tb))
+                for n in (1, 33, LIDAR_B, B)
+                for name, tb in (("per-waypoint", cells),
+                                 ("global", glob_cells))]
+    k7_cases += [(f"tie poses B={ties['x'].shape[0]}, {name} table "
+                  f"{tuple(ties[key].shape)}",
+                  (ties["grid"], ties[key], ties["wp_id"], ties["cx"],
+                   ties["cy"], ties["ux"], ties["uy"], ties["support"],
+                   lidar.range))
+                 for name, key in (("per-waypoint", "wpc"),
+                                   ("global", "cells"))]
+    for label, a7 in k7_cases:
+        ker = lidar_ops.cells_min_cuda(*a7)
+        ref = lidar_ops.cells_min_plain(*a7)
+        torch.cuda.synchronize()
+        bitwise = all(same_bits(x, y) for x, y in zip(ker, ref))
+        k7_err = max(k7_err, bit_err(zip(ker, ref)))
+        print(f"[K7] scan_cells vs plain, {label}: bitwise={bitwise}; beams "
+              f"that hit {float((ker[0] < lidar.range).float().mean()):.4f}",
+              flush=True)
+        if not bitwise:
+            raise AssertionError(f"K7 differs from its plain version ({label})")
+    tie_mid = ker[1][:, (lidar.n_beams - 1) // 2]
+    del ker, ref
+    k7_rows = {}
+    for n in (1, LIDAR_B, B):
+        a7 = k7_args(n)
+        cell_ops, pair_ops = k7_ops(*a7)
+        k7_rows[n] = (device_ms(lambda: lidar_ops.cells_min_cuda(*a7), 50),
+                      cuda_ms(lambda: lidar_ops.cells_min_plain(*a7), 3),
+                      bound(nbytes(a7[1:8], lidar_ops.cells_min_cuda(*a7)),
+                            cell_ops + pair_ops), cell_ops, pair_ops)
+    print("[K7] " + "; ".join(
+        f"B={n}: kernel {k:.4f} ms (device time), plain {p:.3f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}; operations {c:,} per cell over B x K "
+        f"candidates + {q:,} in the {q // K7_PAIR_OPS:,} pair tests of the "
+        f"{q // K7_PAIR_OPS // lidar.n_beams:,} in-range cells)"
+        for n, (k, p, b, c, q) in k7_rows.items())
+        + f"; tie poses' middle beams won by ids {tie_mid[:3].tolist()}... "
+        f"({card})", flush=True)
+    k7_ms, k7_plain_ms, k7_bound = k7_rows[B][:3]
+
+    # ---- phase 15: LiDAR fleet, known map = true map ----
     lidar_kw = dict(table=scan, cells=cells)
     reset_counts()
     t0 = time.perf_counter()
@@ -1942,7 +2050,8 @@ def main():
     print(f"[lidar] simulate_lidar_fleet known = true, B={B} x {STEPS} steps "
           f"(cells scan, packed maps): launches {lidar_launches}", flush=True)
     if lidar_launches != expect(admm_fused=STEPS, corridor_select=STEPS,
-                                writeback_extract_packed=STEPS):
+                                writeback_extract_packed=STEPS,
+                                scan_cells=STEPS):
         raise AssertionError(f"LiDAR fleet launches {lidar_launches}")
     same_log(lres.log, dyn.log, "LiDAR fleet (known = true)")
     if not torch.equal(locc, grid.occ.expand_as(locc)):
@@ -1971,7 +2080,7 @@ def main():
         got = read_counts()
         kernel = "writeback_extract_packed" if wb == "packed" else "writeback_extract"
         if got != expect(admm_fused=STEPS, corridor_select=STEPS,
-                         **{kernel: STEPS}):
+                         scan_cells=STEPS, **{kernel: STEPS}):
             raise AssertionError(f"discovery fleet ({wb}) launches {got}")
         disc_launches[wb] = got
         disc_ms = disc_ms if wb == "fused" else dt / STEPS * 1e3
@@ -2004,19 +2113,27 @@ def main():
     del disc
 
     # ---- phase 17: single car, LiDAR in the loop ----
+    reset_counts()
     t0 = time.perf_counter()
     loop, known = simulate_lidar_loop(grid, free, path, cfg, model,
                                       SimConfig(max_steps=LOOP_STEPS), lidar,
                                       state0=init_car_state(path, cfg.N),
                                       table=scan)
     torch.cuda.synchronize()
+    loop_launches = read_counts()
+    if loop_launches != expect(admm_fused=LOOP_STEPS,
+                               corridor_select=LOOP_STEPS,
+                               writeback_extract_packed=LOOP_STEPS,
+                               scan_cells=LOOP_STEPS):
+        raise AssertionError(f"LiDAR loop launches {loop_launches}")
     n_found = int((free.occ - known.occ).sum())
     s_end = float(loop.final_state.s[0])
     max_ey = float(loop.log.e_y.abs().max())
     failed = bool(loop.final_state.failed[0])
     print(f"[lidar loop] one car, {LOOP_STEPS} steps from an all-free known "
           f"map: {n_found} cells found, s {s_end:.3f} m, failed {failed}, "
-          f"max|e_y| {max_ey:.4f}, {time.perf_counter() - t0:.2f} s wall",
+          f"max|e_y| {max_ey:.4f}, {time.perf_counter() - t0:.2f} s wall; "
+          f"launches { {k: v for k, v in loop_launches.items() if v} }",
           flush=True)
     if n_found <= 200 or s_end <= 1.0 or failed or max_ey >= 0.25:
         raise AssertionError("single-car LiDAR loop gates failed")
@@ -2310,6 +2427,8 @@ def main():
     from multi_purpose_mpc_tpu_torch.parallel.fleet import (
         simulate_fleet_sharded, simulate_lidar_fleet_sharded)
 
+    scans = ("scan_cells",)  # every LiDAR path: K7 once a step
+
     def nccl_runs(mesh):
         return [
             ("simulate_fleet_sharded, static grid",
@@ -2321,7 +2440,7 @@ def main():
              lambda fresh: simulate_lidar_fleet_sharded(
                  mesh, grid, free, pl(fresh), cfg, model, dyn_sim, lidar,
                  fleet16_b if fresh else fleet16, shared_grid=True,
-                 clear_free=True, **lidar_kw), LIDAR_B, STEPS)]
+                 clear_free=True, **lidar_kw), LIDAR_B, STEPS, scans)]
 
     # each run(fresh): on the first inputs, or on fresh ones of the same
     # shapes (the second world on the static and dynamic grids; new starts
@@ -2360,11 +2479,11 @@ def main():
             rt_fleet2 if fresh else rt_fleet), RT_BATCH, RT_STEPS),
         ("LiDAR fleet, known = true (packed)", lambda fresh: simulate_lidar_fleet(
             grid, grid, pl(fresh), cfg, model, dyn_sim, lidar,
-            fleet_b if fresh else fleet, **lidar_kw), B, STEPS),
+            fleet_b if fresh else fleet, **lidar_kw), B, STEPS, scans),
         *((f"discovery fleet, {wb}", lambda fresh, wb=wb: simulate_lidar_fleet(
             grid, free, pl(fresh), cfg, model, dyn_sim, lidar,
             fleet16_b if fresh else fleet16, writeback_backend=wb,
-            **lidar_kw), LIDAR_B, STEPS)
+            **lidar_kw), LIDAR_B, STEPS, scans)
           for wb in ("packed", "fused")),
         ("single-car lap", lambda fresh: simulate_closed_loop(
             *w1(fresh), cfg, model, SimConfig(max_steps=250),
@@ -2374,7 +2493,7 @@ def main():
             grid, free, pl(fresh), cfg, model,
             SimConfig(max_steps=LOOP_STEPS), lidar,
             state0=init_car_state(pl(fresh), cfg.N), table=scan), 1,
-         LOOP_STEPS),
+         LOOP_STEPS, scans),
     ], (map_cfg, path_cfg, model, cfg, speed_cfg, obstacles), nccl_runs,
         card, reset_counts, read_counts)
 
@@ -2390,7 +2509,8 @@ def main():
     # launches: the path's run in its phase plus phase 22's runs (its
     # ranks' included).  library_ms: one PyTorch call computing the same
     # function exists only for K4 (advanced indexing); none solves the QPs,
-    # selects corridors or writes and reads a map in one call
+    # selects corridors, writes and reads a map or sweeps cells against
+    # beams in one call.  K7 replaces XLA code, not a pallas_call
     print(json.dumps({"kernels": [
         row("corridor_select", "ops/corridor_pallas.py:38",
             launches["corridor_select"] + scale["corridor_select"], k2_err,
@@ -2417,6 +2537,9 @@ def main():
         row("admm_structured_cr", "ops/admm_pallas.py:509",
             crsw_launches["admm_structured_cr"], k3cr_err, k3cr_ms,
             k3cr_plain_ms, k3cr_bound, source="admm_structured"),
+        row("scan_cells", "ops/lidar.py:239",
+            lidar_launches["scan_cells"] + scale["scan_cells"], k7_err,
+            k7_ms, k7_plain_ms, k7_bound),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

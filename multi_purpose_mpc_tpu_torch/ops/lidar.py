@@ -16,10 +16,11 @@ Scans (every function takes a fleet: poses (B,), outputs (B, n_beams)):
   exact corner-span test over the 3 x 3 neighbourhood of every sample;
 * ``cells`` (:func:`scan_fleet`): the same corner-span test swept over a
   static table of occupied boundary cells (:func:`occupied_cell_table`,
-  optionally pruned per waypoint by :func:`waypoint_cell_table`), chunked
-  over lanes and cells so that no intermediate passes ``max_elems``
-  elements.  Plain PyTorch (it is XLA code in the JAX package, not a
-  Pallas kernel).
+  optionally pruned per waypoint by :func:`waypoint_cell_table`).  Its
+  sweep, :func:`cells_min`, is kernel K7 (``csrc/scan_cells.cu``) on the
+  card and :func:`cells_min_plain` on the CPU: plain PyTorch chunked over
+  lanes and cells so that no intermediate passes ``max_elems`` elements.
+  The JAX package runs it as XLA code, not as a Pallas kernel.
 
 Beam directions take cos/sin in float64, rounded once to float32, so a
 scan is the same on every device whatever its float32 trig approximation;
@@ -40,6 +41,7 @@ after, so an observed obstacle always wins):
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
@@ -51,6 +53,7 @@ from multi_purpose_mpc_tpu_torch.config import LidarConfig
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap, lookup, m2w, w2m
 from multi_purpose_mpc_tpu_torch.ops.rays import (first_occupied, sample_line,
                                                 unit_linspace)
+from multi_purpose_mpc_tpu_torch.utils import kernels
 
 _F32 = torch.float32
 _BIG = 1e9
@@ -289,12 +292,10 @@ def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
     K, 2) table whose row ``wp_id`` (B,) each lane takes); ``auto`` —
     ``cells`` on a CUDA grid when a table is given, else ``march``.
 
-    ``cells`` sweeps ``chunk`` cells of as many lanes as keep the (lanes,
-    cells, beams) intermediates within ``max_elems`` elements at a time.
-    Chunking does not change the result: within a chunk a tie goes to the
-    smallest packed cell id ``py * W + px``, and across chunks a strict
-    ``<`` keeps the earlier chunk's winner, which holds the smaller id
-    because table rows are in row-major (id-ascending) order."""
+    ``cells`` is a prologue (sensor, beam directions, support), the sweep
+    :func:`cells_min` — kernel K7 on the card, :func:`cells_min_plain` on
+    the CPU, whose ``chunk`` / ``max_elems`` it passes on — and an epilogue
+    (hit flags, ranges, hit points)."""
     if backend == "auto":
         backend = ("cells" if cells is not None and grid.device.type == "cuda"
                    else "march")
@@ -304,20 +305,66 @@ def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
         raise ValueError(f"unknown scan backend {backend!r}")
     if cells is None:
         raise ValueError("cells backend needs occupied_cell_table(true_occ)")
+    if cells.dim() == 3 and wp_id is None:
+        raise ValueError("per-waypoint cell table needs wp_id")
 
-    dev = grid.device
     B, nb = x.shape[0], cfg.n_beams
     H, W = grid.occ.shape
     # the winning cell is carried as a float32 packed id py * W + px
     assert H * W < (1 << 24), "pid packing needs H*W < 2^24"
+    rel, cx, cy, ux, uy, support = cells_prologue(grid, x, y, psi, cfg)
+    acc_d, acc_pid = cells_min(grid, cells, wp_id, cx, cy, ux, uy, support,
+                               cfg.range, chunk=chunk, max_elems=max_elems)
+
+    hit = acc_d < cfg.range
+    pid_i = torch.where(hit, acc_pid, 0.0).to(torch.int32)
+    hx, hy = m2w(grid, pid_i % W, pid_i // W)
+    hx = torch.where(hit, hx, cx[:, None] + cfg.range * ux)
+    hy = torch.where(hit, hy, cy[:, None] + cfg.range * uy)
+    ranges = torch.where(hit, acc_d, cfg.range)
+    return LidarScan(angles=rel.expand(B, nb), ranges=ranges, hit=hit,
+                     hit_xy=torch.stack([hx, hy], -1))
+
+
+# ---------------------------------------------------------------------------
+# The cells sweep: plain PyTorch version and kernel K7
+# ---------------------------------------------------------------------------
+
+def cells_prologue(grid: GridMap, x, y, psi, cfg: LidarConfig):
+    """The ``cells`` scan's per-lane inputs to its sweep: ``(rel, cx, cy,
+    ux, uy, support)``, the relative beam angles (nb,), the sensor (B,)
+    and each beam's direction and half-width ``(|ux| + |uy|) / 2 * res``
+    (B, nb)."""
     cx, cy = _sensor(grid, x, y)
-    rel = beam_angles(cfg, dev)
+    rel = beam_angles(cfg, grid.device)
     ux, uy = _unit(rel[None, :] + psi[:, None])  # (B, nb)
     support = (ux.abs() + uy.abs()) * 0.5 * grid.resolution
+    return rel, cx, cy, ux, uy, support
 
+
+def cells_min_plain(grid: GridMap, cells: torch.Tensor,
+                    wp_id: Optional[torch.Tensor], cx, cy, ux, uy, support,
+                    rng: float, chunk: int = 2048,
+                    max_elems: int = 1 << 27):
+    """The sweep of the ``cells`` scan: for each lane and beam, the nearest
+    table cell that passes the corner-span test (``along > 0``, ``|perp| <=
+    support``, ``0 < d < rng``), as ``(acc_d, acc_pid)`` (B, nb) float32:
+    its distance and packed id ``py * W + px``, 1e9 for both where none
+    passes.  ``cells`` (M, 2) global or (n_wp, K, 2) per waypoint (row
+    ``wp_id`` (B,) for each lane); sensor ``cx, cy`` (B,); ``ux, uy,
+    support`` (B, nb).
+
+    Sweeps ``chunk`` cells of as many lanes as keep the (lanes, cells,
+    beams) intermediates within ``max_elems`` elements at a time.
+    Chunking does not change the result: within a chunk a tie goes to the
+    smallest packed id, and across chunks a strict ``<`` keeps the earlier
+    chunk's winner, which holds the smaller id because table rows are in
+    row-major (id-ascending) order.  The result is therefore the
+    lexicographic minimum of ``(d, pid)``, which kernel K7 computes."""
+    dev = cx.device
+    B, nb = ux.shape
+    W = grid.occ.shape[-1]
     if cells.dim() == 3:  # per-waypoint pruned candidates
-        if wp_id is None:
-            raise ValueError("per-waypoint cell table needs wp_id")
         cells_b = cells[wp_id.long()]  # (B, K, 2)
     else:
         cells_b = cells[None]  # (1, M, 2), every lane
@@ -341,7 +388,7 @@ def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
             dx = gx - cxl  # (lanes, C)
             dy = gy - cyl
             d = torch.sqrt(dx * dx + dy * dy)
-            in_range = ((d < cfg.range) & (d > 0.0))[:, :, None]
+            in_range = ((d < rng) & (d > 0.0))[:, :, None]
             dx, dy = dx[:, :, None], dy[:, :, None]
             # (lanes, C, nb) pair tests: the corner-span reduction
             along = dx * uxl
@@ -363,15 +410,91 @@ def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
             better = c_d < acc_d[b0:b1]
             acc_d[b0:b1] = torch.where(better, c_d, acc_d[b0:b1])
             acc_pid[b0:b1] = torch.where(better, c_pid, acc_pid[b0:b1])
+    return acc_d, acc_pid
 
-    hit = acc_d < cfg.range
-    pid_i = torch.where(hit, acc_pid, 0.0).to(torch.int32)
-    hx, hy = m2w(grid, pid_i % W, pid_i // W)
-    hx = torch.where(hit, hx, cx[:, None] + cfg.range * ux)
-    hy = torch.where(hit, hy, cy[:, None] + cfg.range * uy)
-    ranges = torch.where(hit, acc_d, cfg.range)
-    return LidarScan(angles=rel.expand(B, nb), ranges=ranges, hit=hit,
-                     hit_xy=torch.stack([hx, hy], -1))
+
+SCAN_CELLS_MAX_BEAMS = 2048  # K7's block: 256 threads x 8 beams a thread
+
+
+def _library():
+    fn = kernels.load("scan_cells").scan_cells_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cells_min_cuda(grid: GridMap, cells: torch.Tensor,
+                   wp_id: Optional[torch.Tensor], cx, cy, ux, uy, support,
+                   rng: float):
+    """Launch ``scan_cells_kernel`` (K7) on the current stream; the output
+    of :func:`cells_min_plain`, bit for bit.  ``rng`` is rounded to float32,
+    as torch rounds a Python scalar it compares a float32 tensor with.
+    Raises on anything the kernel does not take, and on a failed launch."""
+    dev = cx.device
+    if dev.type != "cuda":
+        raise ValueError(f"cells_min_cuda needs CUDA tensors, got {dev}")
+    if ux.dim() != 2:
+        raise ValueError(f"ux must be (B, nb), got {tuple(ux.shape)}")
+    B, nb = ux.shape
+    for name, t, shape in (("cx", cx, (B,)), ("cy", cy, (B,)),
+                           ("ux", ux, (B, nb)), ("uy", uy, (B, nb)),
+                           ("support", support, (B, nb)),
+                           ("grid.origin", grid.origin, (2,)),
+                           ("grid.resolution", grid.resolution, ())):
+        if (t.device != dev or t.dtype != _F32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: expected contiguous float32 {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if (cells.device != dev or cells.dtype != torch.int32
+            or not cells.is_contiguous() or cells.dim() not in (2, 3)
+            or cells.shape[-1] != 2):
+        raise ValueError(f"cells: expected a contiguous int32 (M, 2) or (n_wp, "
+                         f"K, 2) table on {dev}, got {cells.dtype} "
+                         f"{tuple(cells.shape)} on {cells.device}")
+    rows, K = (1, cells.shape[0]) if cells.dim() == 2 else cells.shape[:2]
+    if cells.dim() == 3:
+        if (wp_id is None or wp_id.device != dev or wp_id.dtype != torch.int32
+                or not wp_id.is_contiguous() or tuple(wp_id.shape) != (B,)):
+            raise ValueError(f"a per-waypoint table needs wp_id: contiguous "
+                             f"int32 ({B},) on {dev}")
+    if not 0 < nb <= SCAN_CELLS_MAX_BEAMS or rows * K * 2 >= 2 ** 31:
+        raise ValueError(f"cells_min_cuda takes 1-{SCAN_CELLS_MAX_BEAMS} "
+                         f"beams and tables below 2^31 entries, got {nb} "
+                         f"beams, {tuple(cells.shape)}")
+    out_d = torch.empty((B, nb), dtype=_F32, device=dev)
+    out_pid = torch.empty((B, nb), dtype=_F32, device=dev)
+    rc = _library()(
+        cells.data_ptr(), rows, K,
+        wp_id.data_ptr() if cells.dim() == 3 else None,
+        grid.origin.data_ptr(), grid.resolution.data_ptr(),
+        grid.occ.shape[-1], cx.data_ptr(), cy.data_ptr(), ux.data_ptr(),
+        uy.data_ptr(), support.data_ptr(), float(np.float32(rng)), B, nb,
+        out_d.data_ptr(), out_pid.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(rc, "scan_cells_kernel")
+    cells_min_cuda.launches += 1
+    return out_d, out_pid
+
+
+cells_min_cuda.launches = 0
+
+
+def cells_min(grid: GridMap, cells: torch.Tensor,
+              wp_id: Optional[torch.Tensor], cx, cy, ux, uy, support,
+              rng: float, chunk: int = 2048, max_elems: int = 1 << 27):
+    """The ``cells`` sweep: :func:`cells_min_plain` for CPU tensors, kernel
+    K7 (:func:`cells_min_cuda`) for CUDA tensors."""
+    if cx.device.type == "cpu":
+        return cells_min_plain(grid, cells, wp_id, cx, cy, ux, uy, support,
+                               rng, chunk=chunk, max_elems=max_elems)
+    if wp_id is not None:
+        wp_id = wp_id.to(torch.int32).contiguous()
+    return cells_min_cuda(grid, cells, wp_id, cx, cy, ux, uy, support, rng)
 
 
 def measurements(scan_out: LidarScan) -> torch.Tensor:

@@ -104,7 +104,8 @@ def launch_counters() -> dict:
     and K3 count their Schur and their cyclic-reduction instantiations
     apart."""
     from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
-                                                 corridor_extract, mapping)
+                                                 corridor_extract, lidar,
+                                                 mapping)
 
     return {"admm_fused": (admm_cuda.solve_mpc_qp_fused_cuda, "launches"),
             "admm_fused_cr": (admm_cuda.solve_mpc_qp_fused_cuda,
@@ -118,7 +119,8 @@ def launch_counters() -> dict:
             "extract_occ": (corridor_extract.extract_occ_cuda, "launches"),
             "writeback_extract": (mapping.writeback_extract_cuda, "launches"),
             "writeback_extract_packed": (
-                mapping.writeback_extract_packed_cuda, "launches")}
+                mapping.writeback_extract_packed_cuda, "launches"),
+            "scan_cells": (lidar.cells_min_cuda, "launches")}
 
 
 def launch_counts() -> dict:

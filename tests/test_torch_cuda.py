@@ -24,7 +24,8 @@ from multi_purpose_mpc_tpu_torch.config import (LidarConfig, SimConfig,
 from multi_purpose_mpc_tpu_torch.mpc import (WeightSet, kappa_predictions,
                                              mpc_locate, mpc_pre_solve)
 from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
-                                             corridor_extract, mapping)
+                                             corridor_extract, lidar,
+                                             mapping)
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     gather_horizon_block, solver_inputs_from_block)
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import (StageQP,
@@ -150,6 +151,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     pxy = torch.zeros((2, 30, 128), dtype=torch.int32)
     with pytest.raises(ValueError):
         corridor_extract.extract_occ_cuda(torch.ones((500, 500)), pxy, pxy)
+    from scan_ties import tie_world
+
+    w = tie_world("cpu", lanes=2)
+    with pytest.raises(ValueError):
+        lidar.cells_min_cuda(w["grid"], w["wpc"], w["wp_id"], w["cx"],
+                             w["cy"], w["ux"], w["uy"], w["support"], 1.0)
 
 
 @pytest.mark.cuda
@@ -354,11 +361,12 @@ def test_k5_k6_on_a_real_track_sized_grid(cuda_device):
 @pytest.mark.cuda
 def test_lidar_fleet_on_card_equals_dynamic(cuda_sc):
     """On the card the LiDAR fleet with the true map as known map (cells
-    scan, packed write-back: K6, K2, K1) drives exactly as the dynamic-grid
+    scan, packed write-back: K7, K6, K2, K1) drives exactly as the dynamic-grid
     fleet (K4, K2, K1), and its maps stay the true grid."""
     kw = dict(path=cuda_sc["path"], cfg=cuda_sc["cfg"], model=cuda_sc["model"],
               state0=cuda_sc["fleet"])
     n6 = mapping.writeback_extract_packed_cuda.launches
+    n7 = lidar.cells_min_cuda.launches
     res, occ = simulate_lidar_fleet(
         cuda_sc["grid"], cuda_sc["grid"], sim=SimConfig(max_steps=3),
         lidar=LidarConfig(FoV=360, range=1.0, resolution=4,
@@ -366,9 +374,77 @@ def test_lidar_fleet_on_card_equals_dynamic(cuda_sc):
     dyn = simulate_fleet(cuda_sc["grid"],
                          sim=SimConfig(max_steps=3, static_grid=False), **kw)
     assert mapping.writeback_extract_packed_cuda.launches == n6 + 3
+    assert lidar.cells_min_cuda.launches == n7 + 3
     for f in dyn.log._fields:
         assert torch.equal(getattr(res.log, f), getattr(dyn.log, f)), f
     assert torch.equal(occ, cuda_sc["grid"].occ.expand_as(occ))
+
+
+# ---------------------------------------------------------------------------
+# K7, the cells scan's sweep: bitwise equal to its plain version
+# ---------------------------------------------------------------------------
+
+def _k7_inputs(sc, B, table, seed=0):
+    """The sweep's inputs for B poses near random Sim_Track waypoints (up
+    to 6 cm off the centre line, any heading), each lane on its waypoint's
+    row of the per-waypoint table, or the global table."""
+    from multi_purpose_mpc_tpu_torch.simulation import resolve_cell_table
+
+    grid, path = sc["grid"], sc["path"]
+    lid = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=192)
+    if "tables" not in sc:
+        glob = lidar.occupied_cell_table(grid.occ)
+        sc["tables"] = dict(global_=glob, per_waypoint=resolve_cell_table(
+            grid, path, lid, glob, "cells"))
+    rng = np.random.default_rng(seed)
+    wp = torch.tensor(rng.integers(0, path.n_wp, B), dtype=torch.int32,
+                      device=grid.device)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=grid.device)
+    x = path.x[wp.long()] + t(rng.uniform(-0.06, 0.06, B))
+    y = path.y[wp.long()] + t(rng.uniform(-0.06, 0.06, B))
+    psi = t(rng.uniform(-np.pi, np.pi, B))
+    _, cx, cy, ux, uy, support = lidar.cells_prologue(grid, x, y, psi, lid)
+    cells = sc["tables"]["global_" if table == "global" else table]
+    return (grid, cells, wp, cx, cy, ux, uy, support, lid.range)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["global", "per_waypoint"])
+@pytest.mark.parametrize("B", [1, 33, 1024])
+def test_k7_kernel_bitwise_equals_plain(cuda_sc, B, table):
+    args = _k7_inputs(cuda_sc, B, table, seed=B)
+    n7 = lidar.cells_min_cuda.launches
+    ker = lidar.cells_min(*args)
+    ref = lidar.cells_min_plain(*args)
+    torch.cuda.synchronize()
+    assert lidar.cells_min_cuda.launches == n7 + 1
+    for k, r in zip(ker, ref):
+        assert k.shape == (B, 91) and _same_bits(k, r)
+    if B > 1:
+        assert 0.0 < float((ker[0] < 1.0).float().mean()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["global", "per_waypoint"])
+def test_k7_kernel_breaks_ties_as_plain(cuda_device, table):
+    """scan_ties.tie_world on the card: every pose's middle beam meets two
+    cells at one distance; the kernel keeps the smaller id, as the plain
+    version does."""
+    from scan_ties import tie_world
+
+    w = tie_world(cuda_device)
+    args = (w["grid"], w["wpc"] if table == "per_waypoint" else w["cells"],
+            w["wp_id"], w["cx"], w["cy"], w["ux"], w["uy"], w["support"], 1.0)
+    ker = lidar.cells_min_cuda(*args)
+    ref = lidar.cells_min_plain(*args)
+    torch.cuda.synchronize()
+    for k, r in zip(ker, ref):
+        assert _same_bits(k, r)
+    W = w["grid"].occ.shape[1]
+    res = float(w["grid"].resolution)
+    sx = torch.floor((w["x"] - w["grid"].origin[0]) / res)
+    sy = torch.floor((w["y"] - w["grid"].origin[1]) / res)
+    assert torch.equal(ker[1][:, 45], (sy + 1) * W + sx + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -897,7 +973,7 @@ def test_fleet_cache_hit_with_fresh_inputs_equals_eager(cuda_sc, grid_kind):
 @pytest.mark.cuda
 def test_packed_lidar_fleet_graph_equals_eager(cuda_sc):
     """The discovery fleet (cells scan, K6 ping-ponging two map buffers):
-    logs, final state and maps bitwise, K6 = K2 = K1 once a step."""
+    logs, final state and maps bitwise, K7 = K6 = K2 = K1 once a step."""
     sc, T = cuda_sc, 4
     free = dataclasses.replace(sc["grid"], occ=torch.ones_like(sc["grid"].occ))
     lidar = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=192)
@@ -907,6 +983,7 @@ def test_packed_lidar_fleet_graph_equals_eager(cuda_sc):
     _assert_same_tree(g, e)
     assert ng == ne
     assert ng["writeback_extract_packed"] == ng["corridor_select"] == T
+    assert ng["scan_cells"] == T
     assert bool((g[1] < 0.5).sum() > 0)  # the scans found cells
 
 

@@ -1,101 +1,31 @@
 """The port held to the float64 oracle in the JAX package's other oracle-held
-task modes: time-optimal driving (tests/test_parity_topt.py), Real_Track's
-non-circular seam (tests/test_parity_real.py), the production budget
-(tests/test_parity_production.py), and the task-mode laps of
-tests/test_modes.py; the ``cr`` stage solver against the oracle too.
+task modes: the production budget (tests/test_parity_production.py), the
+task-mode laps of tests/test_modes.py and the ``cr`` stage solver against
+the oracle; every fixture is what the oracle computes now.  The per-step
+scenarios, time-optimal driving (tests/test_parity_topt.py) and
+Real_Track's non-circular seam (tests/test_parity_real.py), are held in
+tests/test_torch_oracle_topt.py and tests/test_torch_oracle_seam.py
+(``tests/oracle_held.py``), a file each.
 
 Each oracle run is a fixture, ``tests/data/torch_oracle_{scenario}.npz``,
 written by ``tools/oracle_lap.py --scenario {scenario}`` from the port's
 own grid and path; the hash of the oracle's inputs pins it to the scenario
-rebuilt here.  The per-step scenarios drive one ``simulate_fleet`` step
-(horizon table, K2's and K1's plain versions, accept/replay, plant) from
-every pre-step state the oracle visits, one lane each from
-``init_fleet``'s fresh solver carry, and hold it to the JAX test's bars
-verbatim (``tools/oracle_lap.BARS``):
-
-* time-optimal (tests/test_parity_topt.py:95-141): acceptance equal on
-  every step and > 90 % both accept; v, x', y', s' within 1e-3 on every
-  step both accept; delta median / p90 / max 2e-2 / 1e-1 / 5e-1, psi'
-  1e-2 / 5e-2 / 2.5e-1 (the terminal time weight dilates the QP's cost
-  resolution, so no tight subset);
-* the seam (tests/test_parity_real.py:95-113): the window >= 200 steps and
-  ending at the path end; the bars of tests/test_parity.py.
-
-The production free run and the mode laps run ``simulate_closed_loop``
-laps of 300-400 steps, minutes on the CPU: they are ``slow`` here and held
-on the card by ``chip_smoke.py`` phase 20.  Imports no JAX.
+rebuilt here.  The production free run and the mode laps run
+``simulate_closed_loop`` laps of 300-400 steps, minutes on the CPU: they
+are ``slow`` here and held on the card by ``chip_smoke.py`` phase 20.
+Imports no JAX.
 """
-
-import functools
 
 import numpy as np
 import pytest
 
+from oracle_held import fixture_matches_test
+from oracle_held import scenario as _scenario
 from tools import oracle_lap as ol
 
 NEW = ("time_optimal", "real_seam", "production")
-HELD = ("time_optimal", "real_seam")
 
-
-@functools.lru_cache(maxsize=None)
-def _scenario(name):
-    """The scenario rebuilt on the CPU and its fixture, hash checked."""
-    sc = ol.scenario(name)
-    return sc, ol.load_fixture(sc)
-
-
-@pytest.fixture(scope="module")
-def pars():
-    """The port's step from every pre-step state of each held scenario."""
-    out = {}
-    for name in HELD:
-        sc, lap = _scenario(name)
-        out[name] = ol.parity(ol.port_step(sc, lap), lap, name)
-    return out
-
-
-@pytest.mark.parametrize("name", NEW)
-def test_oracle_fixture_matches_scenario(name):
-    """Each fixture's hash is the hash of the oracle's inputs rebuilt now,
-    and its window is the JAX test's (>= 100 time-optimal steps; >= 200
-    seam steps ending at the path end)."""
-    sc, lap = _scenario(name)
-    ol.check_window(sc, lap)
-    assert len(lap["pre_x"]) == len(lap["x"])
-
-
-@pytest.mark.parametrize("name", HELD)
-def test_oracle_mode_acceptance(pars, name):
-    # acceptance agreement on every step, an overwhelmingly accepted run
-    # and (seam) >= 80 % of it tight
-    par, bars = pars[name], ol.BARS[name]
-    assert par["disagree"].size == 0, \
-        f"acceptance disagrees at steps {par['disagree']}"
-    assert par["both"] > bars.both_min
-    if bars.tight_rprim is not None:
-        assert par["tight"] >= bars.tight_min * par["steps"], \
-            f"only {par['tight']}/{par['steps']} well-posed steps"
-
-
-@pytest.mark.parametrize("coord", ["x", "y", "s", "v"])
-@pytest.mark.parametrize("name", HELD)
-def test_oracle_mode_trajectory_1e3(pars, name, coord):
-    # next pose, progress and the speed command within 1e-3 on every step
-    # both accept
-    par = pars[name]
-    assert par[f"{coord}_max"] <= ol.BARS[name].traj, \
-        (f"{coord}: max |diff| {par[f'{coord}_max']:.3e} at step "
-         f"{par[f'{coord}_argmax']}")
-
-
-@pytest.mark.parametrize("angle", ["delta", "psi"])
-@pytest.mark.parametrize("name", HELD)
-def test_oracle_mode_angles(pars, name, angle):
-    # steering and heading to the QP's cost resolution: the JAX test's
-    # median / p90 / tight / all-step bars
-    par = pars[name]
-    held = [m for m in ol.misses(par, name) if m.startswith(angle + " ")]
-    assert not held, (held, par)
+test_oracle_fixture_matches_scenario = fixture_matches_test(["production"])
 
 
 @pytest.mark.slow

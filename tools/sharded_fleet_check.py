@@ -16,7 +16,7 @@ starts) and runs, through ``parallel.fleet``:
   by one MAX all-reduce per mask class a step;
 
 each for ``--steps`` steps after the same fleet unsharded on its own
-device (on the card rank 0 builds the six kernels first, every rank loads
+device (on the card rank 0 builds the seven kernels first, every rank loads
 them, and one step of each fleet warms the rank up before anything is
 timed), and checks that its block's logs, final state and maps equal the
 unsharded run's lanes bit for bit, that the shared map is the unsharded
@@ -199,9 +199,14 @@ def main():
         (ref, ref_occ), *ref_secs = timed(lambda: simulate_lidar_fleet(
             grid, free, path, cfg, model, dyn_sim, lidar, lfleet, **kw), cuda,
             mesh.group)
+        before = kernels.launch_counts()["scan_cells"]
         (res, occ), *secs = timed(lambda: simulate_lidar_fleet_sharded(
             mesh, grid, free, path, cfg, model, dyn_sim, lidar, lfleet, **kw),
             cuda, mesh.group)
+        # on the card the cells scan: kernel K7 once a step on every rank
+        scans = kernels.launch_counts()["scan_cells"] - before
+        if scans != (args.steps if cuda else 0):
+            raise AssertionError(f"{label}: K7 launched {scans} times")
         same(res.log, type(ref.log)(*(f[:, sl] for f in ref.log)),
              f"{label} log")
         same(res.final_state, tree_map(lambda x: x[sl], ref.final_state),
