@@ -1,0 +1,17 @@
+"""K1 (``csrc/admm_fused.cu``, Schur stage solver): QP assembly, the ADMM
+of ``iterations`` x ``rho_updates`` + ``polish_iters`` iterations and the
+violation floor, for ``B`` lanes at horizon ``N``."""
+
+
+def ops(B: int, N: int, iterations: int, rho_updates: int,
+        polish_iters: int) -> int:
+    iters = iterations * rho_updates + polish_iters
+    polish = 1 if polish_iters > 0 else 0
+    lane = ((97 + 196 * N) + (167 + 326 * N) * iters
+            + (978 + 1441 * N) * rho_updates + (1017 + 1497 * N) * polish)
+    return B * lane + (30 + 25 * N) * (rho_updates + polish)
+
+
+def nbytes(B: int, N: int) -> int:
+    """Each input read once, each output written once."""
+    return B * (152 + 168 * N)
