@@ -15,7 +15,7 @@ graphed; phase 23 holds each path's first and repeated calls against
 the eager form.
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
-2. build: compiles the seven CUDA kernels from
+2. build: compiles the seven CUDA kernels and the stage clock from
    ``multi_purpose_mpc_tpu_torch/csrc``, one nvcc per source, in parallel;
 3. K2 (corridor selection) vs its plain twin, bitwise (NaN equal to NaN)
    or fail: the horizon blocks of 4096 feasible starts, their first 1 and
@@ -77,13 +77,13 @@ the eager form.
 15. LiDAR fleet, known map = true map, B = 4096 x 50 steps, bench.py's
     LiDAR, "auto" backends (cells scan, packed maps): K7 = K6 = K2 = K1 =
     50 launches, K4 = K5 = K3 = 0; the log bitwise equal to phase 9's; the
-    maps stay the true grid; health gates; a CUDA-event step breakdown
-    (its "scan (cells)" part is K7 with the scan's torch prologue and
-    epilogue);
+    maps stay the true grid; health gates; the step's stages by the stage
+    clock (``[stages]``: its ``scan`` is K7 with the scan's torch
+    prologue and epilogue);
 16. discovery fleet from an all-free known map, B = 1024 x 50 steps, packed
     then fused maps (K7 = K6 or K5 = K2 = K1 = 50): cells found per lane,
-    logs and final maps of the two runs bitwise equal, health gates; a
-    step breakdown;
+    logs and final maps of the two runs bitwise equal, health gates; each
+    run's stages;
 17. one car, ``simulate_lidar_loop``, 40 steps from an all-free known map
     (K7 = K6 = K2 = K1 = 40): > 200 cells found, s > 1 m, not failed, max
     |e_y| < 0.25;
@@ -285,6 +285,19 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def stage_line(label: str) -> None:
+    """Print the last rollout call's stages by the stage clock: the median
+    ms a step of each (the first call's first step ran eagerly)."""
+    from multi_purpose_mpc_tpu_torch.utils import spans
+
+    t = spans.ring("rollout").table()
+    ms = np.median(t.durations_ns(), axis=0) / 1e6
+    print(f"[stages] {label}, median ms a step over {len(t.ts)} steps "
+          "(stage clock): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        zip(t.names, ms))
+          + f"; sum {ms.sum():.4f}", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1323,8 +1336,7 @@ def main():
         sim_track_preset, time_optimal_config)
     from multi_purpose_mpc_tpu_torch.models.bicycle import init_car_state
     from multi_purpose_mpc_tpu_torch.mpc import (
-        WeightSet, kappa_predictions, mpc_locate, mpc_pre_solve,
-        mpc_step_batched_with_corridor)
+        WeightSet, kappa_predictions, mpc_locate, mpc_pre_solve)
     from multi_purpose_mpc_tpu_torch.ops import (admm_cuda, corridor_cuda,
                                                  corridor_extract, mapping)
     from multi_purpose_mpc_tpu_torch.ops.corridor_extract import horizon_segments
@@ -1332,13 +1344,11 @@ def main():
         build_horizon_table, empty_segments, gather_horizon_block,
         horizon_block_from_segments, solver_inputs_from_block)
     from multi_purpose_mpc_tpu_torch.ops import lidar as lidar_ops
-    from multi_purpose_mpc_tpu_torch.ops.lidar import hit_pixels, scan_fleet
     from multi_purpose_mpc_tpu_torch.ops.ltv_qp import pack_qp
     from multi_purpose_mpc_tpu_torch.ops.path import build_reference_path
     from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
     from multi_purpose_mpc_tpu_torch.simulation import (
-        _locate_horizon, _post_control, _select_corridor_batched,
-        feasible_starts, init_fleet, resolve_cell_table,
+        _locate_horizon, feasible_starts, init_fleet, resolve_cell_table,
         simulate_closed_loop, simulate_fleet, simulate_lidar_fleet,
         simulate_lidar_loop, static_horizon_table)
     from multi_purpose_mpc_tpu_torch.utils import kernels
@@ -1348,13 +1358,14 @@ def main():
 
     # ---- phase 2: build ----
     names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ",
-             "writeback_extract", "writeback_extract_packed", "scan_cells")
+             "writeback_extract", "writeback_extract_packed", "scan_cells",
+             "stage_clock")
     t0 = time.perf_counter()
     for name, sec in kernels.build_all(names).items():
         kernels.load(name)
         print(f"[build] {name}.cu -> {kernels.library_path(name)} in "
               f"{sec:.2f} s", flush=True)
-    print(f"[build] all seven in {time.perf_counter() - t0:.2f} s wall",
+    print(f"[build] all eight in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
     counted = kernels.launch_counters()
 
@@ -1857,37 +1868,6 @@ def main():
     rt_fleet2 = rt_starts(rt_path2, SEED + 1)
 
     # ---- phases 13-17: LiDAR in the loop ----
-    def breakdown(label, state, cells, step_ms):
-        """CUDA-event times of the parts of one packed LiDAR step from
-        ``state`` on the true map, against the rollout's wall per step."""
-        pk = mapping.pack_rows(grid.occ).expand(state.batch, -1, -1).contiguous()
-        parts = {}
-
-        def part(name, fn, reps=3):
-            parts[name] = cuda_ms(fn, reps)
-            return fn()
-
-        located, idx = part("locate", lambda: _locate_horizon(state, path, cfg))
-        h = corridor_extract.horizon_tables(scan, idx)
-        scans = part("scan (cells)", lambda: scan_fleet(
-            grid, state.x, state.y, state.psi, lidar, cells=cells,
-            wp_id=state.wp_id))
-        hpx, hpy = hit_pixels(grid, scans, grid.height, grid.width)
-        _, vals = part("K6", lambda: mapping.writeback_extract_packed_cuda(
-            pk, hpx, hpy, scans.hit, h.px, h.py))
-        segs = part("free runs", lambda: horizon_segments(vals, h, 2.0 * sm, S))
-        corridor, blk = part("block + K2", lambda: _select_corridor_batched(
-            base, located[0], segs, cfg, sm))
-        out = part("solve (K1 + accept)", lambda: mpc_step_batched_with_corridor(
-            state, cfg, model, located, corridor,
-            solver_inputs_from_block(blk, S)), reps=1)
-        part("plant + log", lambda: _post_control(out, path, model))
-        rest = step_ms - sum(parts.values())
-        print(f"[breakdown] LiDAR step at {label}, ms per step (CUDA events, "
-              f"{card}): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-              + f"; wall {step_ms:.3f}, rest (host gaps, idle) {rest:.3f}",
-              flush=True)
-
     # ---- phase 13: K5 vs plain ----
     nb = lidar.n_beams
     px_all, py_all = hz.px, hz.py  # the fleet's (B, N, K) horizon samples
@@ -2062,13 +2042,13 @@ def main():
           f"({dt:.3f} s wall), {fmt_health(h)} on {card}", flush=True)
     check_health(h, "LiDAR fleet")
     del lres, locc
-    breakdown(f"B={B}", fleet, cells, dt / STEPS * 1e3)
+    stage_line(f"LiDAR step at B={B}")
 
     # ---- phase 16: discovery fleet from an all-free known map ----
     free = dataclasses.replace(grid, occ=torch.ones_like(grid.occ))
     fleet16 = init_fleet(path, cfg.N, LIDAR_B, e_y0=ey0[:LIDAR_B],
                          wp_id0=wp0[:LIDAR_B])
-    disc, disc_launches, disc_ms = {}, {}, None
+    disc, disc_launches = {}, {}
     for wb in ("packed", "fused"):
         reset_counts()
         t0 = time.perf_counter()
@@ -2083,7 +2063,7 @@ def main():
                          scan_cells=STEPS, **{kernel: STEPS}):
             raise AssertionError(f"discovery fleet ({wb}) launches {got}")
         disc_launches[wb] = got
-        disc_ms = disc_ms if wb == "fused" else dt / STEPS * 1e3
+        stage_line(f"discovery step ({wb} maps) at B={LIDAR_B}")
         res16, occ16 = disc[wb]
         found = (occ16 < 0.5).flatten(1).sum(1)
         h = health(res16.log, res16.final_state, path, model, STEPS)
@@ -2108,7 +2088,6 @@ def main():
         raise AssertionError("fused and packed discovery maps differ")
     print("[discovery] fused and packed runs: logs and final maps bitwise "
           "equal", flush=True)
-    breakdown(f"B={LIDAR_B}", fleet16, cells, disc_ms)
     disc_packed = disc.pop("packed")  # phase 22's per-lane reference
     del disc
 

@@ -41,7 +41,7 @@ from multi_purpose_mpc_tpu_torch.ops import lidar as lidar_ops
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import init_solver_carry
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, build_reference_path
 from multi_purpose_mpc_tpu_torch.ops.speed_profile import compute_speed_profile
-from multi_purpose_mpc_tpu_torch.utils import graphs
+from multi_purpose_mpc_tpu_torch.utils import graphs, spans
 from multi_purpose_mpc_tpu_torch.utils import maps as maps_util
 from multi_purpose_mpc_tpu_torch.utils import viz
 from multi_purpose_mpc_tpu_torch.utils.tree import leaves, tree_map
@@ -333,7 +333,7 @@ class BicycleModel:
         self._model_cfg = ModelConfig(length=length, width=width, Ts=Ts)
         self._N = 30  # replaced when an MPC attaches
         self._state: CarState = init_car_state(reference_path.path_data, self._N)
-        self._graphed = _Graphed(self._drive_step)
+        self._graphed = _Graphed(self._drive_step, "drive")
 
     # --- state views -------------------------------------------------
     @property
@@ -420,6 +420,7 @@ class BicycleModel:
     _DRIVE_WRITES = ("x", "y", "psi", "s")
 
     def _drive_step(self, vd, *fields):
+        spans.stage("drive")
         st = dataclasses.replace(self._state,
                                  **dict(zip(self._DRIVE_READS, fields)))
         st = bike.drive(st, self.reference_path.path_data, vd[:1], vd[1:],
@@ -431,19 +432,28 @@ class BicycleModel:
         spatial_bicycle_models.py:221-244).  On the card the plant step
         replays a CUDA graph (the counterpart of the JAX API's jitted
         drive) on copies of the fields it reads, captured at the first
-        call and again once the path is replaced."""
-        st = self._state
-        vd = torch.tensor([float(u[0]), float(u[1])], dtype=_F32,
-                          device=st.x.device)
-        fields = [getattr(st, f) for f in self._DRIVE_READS]
-        if graphs.should_capture(st.x.device):
-            key = (self.reference_path.path_data, self.length, self.Ts)
-            new = self._graphed(key, None, vd, *fields)
-            new = [x.clone() for x in new]  # the next replay rewrites them
-        else:
-            new = self._drive_step(vd, *fields)
-        self._state = dataclasses.replace(
-            st, **dict(zip(self._DRIVE_WRITES, new)))
+        call and again once the path is replaced.
+
+        A host span ``drive`` under the current control cycle's id, with
+        children ``upload`` (the ``[v, delta]`` tensor, and its copy and
+        the fields' into the graph's inputs), ``replay`` (or ``capture``)
+        and ``clone`` (``step`` when eager); the step is the ``drive``
+        ring's one stage."""
+        with spans.span("drive", spans.request("cycle")):
+            st = self._state
+            spans.phase("upload")
+            vd = torch.tensor([float(u[0]), float(u[1])], dtype=_F32,
+                              device=st.x.device)
+            fields = [getattr(st, f) for f in self._DRIVE_READS]
+            if graphs.should_capture(st.x.device):
+                key = (self.reference_path.path_data, self.length, self.Ts)
+                new = self._graphed(key, None, vd, *fields)
+                spans.phase("clone")
+                new = [x.clone() for x in new]  # the next replay rewrites them
+            else:
+                new = self._graphed.eager(vd, *fields)
+            self._state = dataclasses.replace(
+                st, **dict(zip(self._DRIVE_WRITES, new)))
 
     def show(self, ax=None):
         import matplotlib.pyplot as plt
@@ -463,27 +473,61 @@ class _Graphed:
     the graph's own outputs, which the next call rewrites; a call that
     captures returns its warm-up's result, the step run eagerly.
     ``prepare(*copies)`` runs once before each capture (set-up that must
-    not run inside the warm-up's sync check)."""
+    not run inside the warm-up's sync check).
 
-    def __init__(self, fn):
+    ``label``: the steps' stages are recorded into a
+    :class:`~.utils.spans.StageRing` of :data:`~.utils.spans.API_ROWS`
+    rows under that label: the entry's, allocated before each capture,
+    and one of the eager form's own (:meth:`eager`).  A call starts the
+    enclosing host span's child (:func:`~.utils.spans.phase`)
+    ``capture``, or ``replay`` after the key check and ``copy_in``;
+    ``step`` when eager."""
+
+    def __init__(self, fn, label=None):
         self.fn = fn
-        self.key = self.entry = None
+        self.label = label
+        self.key = self.entry = self.eager_ring = None
+
+    def _new_ring(self, args):
+        if self.label is None:
+            return None
+        return spans.StageRing(self.label, spans.API_ROWS,
+                               leaves(args)[0].device)
+
+    def _marked(self, ring, *args):
+        """``fn(*args)``, its stages recorded as one step of ``ring``."""
+        if ring is None:
+            return self.fn(*args)
+        with spans.recording(ring):
+            out = self.fn(*args)
+        ring.end()
+        return out
+
+    def eager(self, *args):
+        """``fn(*args)`` run eagerly, its stages recorded."""
+        spans.phase("step")
+        ring = self.eager_ring
+        if ring is None or ring.device != leaves(args)[0].device:
+            ring = self.eager_ring = self._new_ring(args)
+        return self._marked(ring, *args)
 
     def __call__(self, key, prepare, *args):
         layout = [(x.shape, x.dtype) for x in leaves(args)]
         if self.entry is None or layout != self.key[1] or len(key) != len(
                 self.key[0]) or any(a is not b for a, b in zip(key, self.key[0])):
+            spans.phase("capture")
             self.entry = None  # frees the old graph's memory pool first
-            entry = graphs.Entry(args)
+            entry = graphs.Entry(args, ring=self._new_ring(args))
             if prepare is not None:
                 prepare(*entry.args)
-            step = lambda: self.fn(*entry.args)
+            step = lambda: self._marked(entry.ring, *entry.args)
             graph = entry.capture(step, warmup=step)
             self.entry, self.key = entry, (tuple(key), layout)
             return graph.first
         self.entry.copy_in(args)
+        spans.phase("replay")
         graph, = self.entry.graphs
-        graph.replay()
+        self.entry.replay(graph)
         return graph.out
 
 
@@ -528,7 +572,7 @@ class MPC:
         self.current_prediction = None
         self.current_control = np.zeros(self.nu * N)
         self.infeasibility_counter = 0
-        self._graphed = _Graphed(self._control_step)
+        self._graphed = _Graphed(self._control_step, "control")
 
     def _control_step(self, state: CarState, grid: grid_ops.GridMap):
         """:func:`~.mpc.mpc_step` and the predicted positions: ``(new
@@ -551,37 +595,54 @@ class MPC:
         step), captured at the first call and again once the path (as
         ``compute_speed_profile`` replaces it), a config or the grid's
         geometry is replaced; the one device-to-host copy stays outside
-        it."""
-        rp = self.model.reference_path
-        grid = rp.map.grid
-        if graphs.should_capture(grid.device):
-            cfg = self.config
-            # the corridor's tables (setup, cached per path and geometry)
-            # are built before the capture's warm-up and its sync check
-            prepare = lambda _, g: cons.corridor_tables(
-                g, rp.path_data, cfg.N, cfg.n_scan_samples, cfg.max_segments)
-            key = (rp.path_data, cfg, self.model._model_cfg, grid.origin,
-                   grid.resolution)
-            st, flat = self._graphed(key, prepare, self.model._state, grid)
-            st = tree_map(torch.clone, st)  # the next replay rewrites st
-        else:
-            st, flat = self._control_step(self.model._state, grid)
-        self.model._state = st
-        N = self.N
-        flat = flat.cpu().numpy()
-        v, delta, failed, count = flat[:4]
-        useq = flat[4:4 + 2 * N].reshape(N, 2)
-        self.infeasibility_counter = int(count)
-        ctrl = useq.copy()
-        ctrl[:, 1] = np.arctan(ctrl[:, 1] * self.model.length)
-        self.current_control = ctrl.reshape(-1)
-        self.current_prediction = (flat[4 + 2 * N:5 + 3 * N],
-                                   flat[5 + 3 * N:])
-        if failed:
-            # the reference exits the process here (MPC.py:218-220)
-            raise RuntimeError("No control signal computed! "
-                               f"({self.N - 1} consecutive infeasible QPs)")
-        return np.array([float(v), float(delta)])
+        it.
+
+        Each call opens a control cycle (:func:`~.utils.spans.next_request`
+        of ``"cycle"``, which ``drive`` shares): a host span
+        ``get_control`` with children ``prepare`` (the key check and the
+        copies in), ``replay`` (with the state's copies out) or
+        ``capture``, or ``step`` when eager, then ``readback`` (the copy,
+        the time blocked on the device) and ``unpack``; the step's stages
+        (``corridor``, ``pre_solve``, ``solve``, ``post``) go to the
+        ``control`` ring."""
+        with spans.span("get_control", spans.next_request("cycle")):
+            rp = self.model.reference_path
+            grid = rp.map.grid
+            if graphs.should_capture(grid.device):
+                cfg = self.config
+                # the corridor's tables (setup, cached per path and
+                # geometry) are built before the capture's warm-up and its
+                # sync check
+                prepare = lambda _, g: cons.corridor_tables(
+                    g, rp.path_data, cfg.N, cfg.n_scan_samples,
+                    cfg.max_segments)
+                spans.phase("prepare")
+                key = (rp.path_data, cfg, self.model._model_cfg, grid.origin,
+                       grid.resolution)
+                st, flat = self._graphed(key, prepare, self.model._state,
+                                         grid)
+                st = tree_map(torch.clone, st)  # the next replay rewrites st
+            else:
+                st, flat = self._graphed.eager(self.model._state, grid)
+            self.model._state = st
+            N = self.N
+            spans.phase("readback")
+            flat = flat.cpu().numpy()
+            spans.phase("unpack")
+            v, delta, failed, count = flat[:4]
+            useq = flat[4:4 + 2 * N].reshape(N, 2)
+            self.infeasibility_counter = int(count)
+            ctrl = useq.copy()
+            ctrl[:, 1] = np.arctan(ctrl[:, 1] * self.model.length)
+            self.current_control = ctrl.reshape(-1)
+            self.current_prediction = (flat[4 + 2 * N:5 + 3 * N],
+                                       flat[5 + 3 * N:])
+            if failed:
+                # the reference exits the process here (MPC.py:218-220)
+                raise RuntimeError("No control signal computed! "
+                                   f"({self.N - 1} consecutive infeasible "
+                                   "QPs)")
+            return np.array([float(v), float(delta)])
 
     def update_prediction(self, spatial_state_prediction=None):
         return self.current_prediction

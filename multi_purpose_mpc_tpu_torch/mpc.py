@@ -38,6 +38,7 @@ from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     corridor_select_from_block, gather_horizon_block, solver_inputs_from_block)
 from multi_purpose_mpc_tpu_torch.ops.ltv_qp import LTVQP, LTVSolution
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
+from multi_purpose_mpc_tpu_torch.utils import spans
 
 _EPS = 1e-12
 
@@ -315,6 +316,7 @@ def mpc_step_batched_with_corridor(state: CarState, cfg: MPCConfig,
     ``weights``: per-lane assembly here, then kernel K3 (K1 bakes the
     config's weights).  ``cfg.solver.escalate_lanes > 0`` adds the
     escalation pass, through the same kernel."""
+    spans.stage("solve")
     wp_id, e_y, e_psi = located
     esc = _escalated_cfg(cfg.solver)
     if weights is not None:
@@ -350,7 +352,9 @@ def mpc_step_batched(state: CarState, path: PathData, cfg: MPCConfig,
     (:mod:`.ops.horizon_table`): one block take, corridor selection (K2),
     then the solve of :func:`mpc_step_batched_with_corridor` fed from the
     block (K1, or per-lane assembly + K3 under ``weights``)."""
+    spans.stage("locate")
     located = mpc_locate(state, path)
+    spans.stage("select")
     blk = gather_horizon_block(table, located[0])
     corridor = corridor_select_from_block(blk, cfg, model.safety_margin)
     horizon = solver_inputs_from_block(blk, cfg.max_segments)
@@ -373,7 +377,11 @@ def mpc_step(state: CarState, path: PathData, grid: GridMap, cfg: MPCConfig,
     them.  The solve is :func:`~.ops.admm_cuda.solve_ltv_qp_structured`
     (kernel K3 on the card), the TPU entry ``solve_ltv_qp_pallas`` where
     the JAX function calls its XLA solver: the step size resumes from the
-    carry and ``eps_d`` comes from max(|q_x|, |q_u|)."""
+    carry and ``eps_d`` comes from max(|q_x|, |q_u|).
+
+    Stages (:func:`~.utils.spans.stage`): ``corridor``, ``pre_solve``
+    (horizon gather, assembly and floor), ``solve``, ``post``."""
+    spans.stage("corridor")
     located = mpc_locate(state, path)
     wp_id = located[0]
     sm = model.safety_margin
@@ -383,10 +391,13 @@ def mpc_step(state: CarState, path: PathData, grid: GridMap, cfg: MPCConfig,
             n_samples=cfg.n_scan_samples, max_segments=cfg.max_segments)
     else:
         corridor = mpc_corridor(wp_id, path, cfg, model, segments)
+    spans.stage("pre_solve")
     idx = horizon_indices(path, wp_id, cfg.N)
     horizon = (path.v_ref[idx], path.kappa[idx], path.seg_dist[idx])
     qp, aux = mpc_pre_solve(state, cfg, model, located, corridor, horizon)
+    spans.stage("solve")
     sol = solve_ltv_qp_structured(qp, state.solver, cfg.solver)
+    spans.stage("post")
     return mpc_post_solve(state, sol, aux, cfg, model)
 
 

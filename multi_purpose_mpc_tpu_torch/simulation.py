@@ -61,7 +61,7 @@ from multi_purpose_mpc_tpu_torch.ops.lidar import (
 from multi_purpose_mpc_tpu_torch.ops.mapping import (
     pack_rows, unpack_rows, writeback_extract, writeback_extract_packed)
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
-from multi_purpose_mpc_tpu_torch.utils import graphs
+from multi_purpose_mpc_tpu_torch.utils import graphs, spans
 from multi_purpose_mpc_tpu_torch.utils.tree import leaves, signature, tree_map
 
 
@@ -89,6 +89,7 @@ class SimResult(NamedTuple):
 
 def _post_control(out: ControlOutput, path: PathData, model: ModelConfig):
     """Plant step + one step of logs after a fleet control step."""
+    spans.stage("post")
     st = out.state
     active = ~(st.done | st.failed)
     v = torch.where(active, out.v, torch.zeros_like(out.v))
@@ -112,6 +113,7 @@ def static_horizon_table(grid: GridMap, path: PathData, cfg: MPCConfig,
     return build_horizon_table(path, segs, cfg)
 
 
+@spans.call_span("rollout", "rollout")
 def simulate_fleet(grid: GridMap, path: PathData, cfg: MPCConfig,
                    model: ModelConfig, sim: SimConfig, state0: CarState,
                    table=None, weights: Optional[WeightSet] = None) -> SimResult:
@@ -171,29 +173,42 @@ def _rollout(sim_step, carry0, steps: int, group=None, inputs=(), key=()):
     eagerly as the warm-up, captures and replays the graphs for the other
     ``steps - 1``; a later call with the same key copies its ``carry0``
     and ``inputs`` in and replays all ``steps``.  A graphed call returns
-    copies: the entry's buffers belong to its next call."""
+    copies: the entry's buffers belong to its next call.
+
+    Inside the public entry's host span ``rollout`` (its request id the
+    call's; :func:`~.utils.spans.call_span`) the call's children are
+    ``inputs`` (the entry's own work), then ``steps`` (eager), or
+    ``lookup`` (the cache key), ``capture`` / ``copy_in``, ``replay`` (the
+    replays' launch loop) and ``result`` (the copies); each step's stages
+    go to the entry's stage ring (:mod:`~.utils.spans`)."""
     if steps < 1:
         raise ValueError(f"a rollout takes at least one step, got {steps}")
     dev = leaves(carry0)[0].device
     if steps == 1 or not graphs.should_capture(dev, group):
+        spans.phase("steps")
         entry = graphs.RolloutEntry(carry0, inputs, steps)
         for i in range(steps):
             entry.step(sim_step, i % 2)
         return entry.result()
+    spans.phase("lookup")
     full_key = (tuple(key), steps, None if group is None else id(group),
                 signature((carry0, inputs)))
     entry = graphs.rollout_cache.get(dev, full_key)
     if entry is None:
+        spans.phase("capture")
         entry = graphs.RolloutEntry(carry0, inputs, steps, group)
         entry.capture_pair(sim_step)
         graphs.rollout_cache.put(dev, full_key, entry)
         first = 1
     else:
+        spans.phase("copy_in")
         entry.copy_in((carry0, inputs))
         entry.t.zero_()
         first = 0
+    spans.phase("replay")
     for i in range(first, steps):
-        entry.pair[i % 2].replay()
+        entry.replay(entry.pair[i % 2])
+    spans.phase("result")
     return tree_map(torch.clone, entry.result())
 
 
@@ -248,9 +263,12 @@ def _dynamic_corridor_batched(state: CarState, path: PathData,
                               model: ModelConfig):
     """Fleet localization + dynamic-grid corridor; ``occ`` is per-lane
     (B, H, W) or shared (H, W).  Returns ``(located, corridor, block)``."""
+    spans.stage("locate")
     located, idx = _locate_horizon(state, path, cfg)
     sm = model.safety_margin
+    spans.stage("extract")
     segs = fleet_dynamic_segments(occ, scan, idx, 2.0 * sm, cfg.max_segments)
+    spans.stage("select")
     corridor, blk = _select_corridor_batched(table, located[0], segs, cfg, sm)
     return located, corridor, blk
 
@@ -349,6 +367,7 @@ def resolve_cell_table(true_grid: GridMap, path: PathData, lidar: LidarConfig,
     return cells
 
 
+@spans.call_span("rollout", "rollout")
 def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
                          path: PathData, cfg: MPCConfig, model: ModelConfig,
                          sim: SimConfig, lidar: LidarConfig, state0: CarState,
@@ -441,13 +460,18 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
             # buffer set: two maps ping-pong, none is copied
             st, occ = carry
             path = x["path"]
+            spans.stage("locate")
             located, idx = _locate_horizon(st, path, cfg)
             h = horizon_tables(x["table"], idx)
+            spans.stage("scan")
             scans = scans_of(st, x)
             hpx, hpy = hit_pixels(x["frame"], scans, H, W)
+            spans.stage("writeback")
             occ, vals = fused(occ, hpx.contiguous(), hpy.contiguous(),
                               scans.hit.contiguous(), h.px, h.py, out=dst[1])
+            spans.stage("free_runs")
             segs = horizon_segments(vals, h, 2.0 * sm, cfg.max_segments)
+            spans.stage("select")
             corridor, blk = _select_corridor_batched(x["base"], located[0],
                                                      segs, cfg, sm)
             out = mpc_step_batched_with_corridor(
@@ -465,8 +489,10 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
 
     def step(carry, _, x):
         st, occ = carry
+        spans.stage("scan")
         scans = scans_of(st, x)
         frame = x["frame"]
+        spans.stage("writeback")
         if group is not None:
             masks = fleet_observation_masks(frame, H, W, st.x, st.y, st.psi,
                                             scans, lidar,

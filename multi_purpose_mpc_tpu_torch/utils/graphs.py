@@ -40,6 +40,11 @@ one entry per step, static configuration, step count and layout,
 captured at the first call and replayed by every later call with fresh
 inputs of the same shapes.  :func:`clear_cache` empties it, as
 ``jax.clear_caches`` does.
+
+An entry may own a :class:`~.spans.StageRing` (a rollout's always does):
+its steps mark their stages into it on the device, inside the graphs, and
+each replay (:meth:`Entry.replay`) notes its row on the host.  :data:`captures` counts the
+:class:`StepGraph` objects built, beside :func:`capture_seconds`.
 """
 
 from __future__ import annotations
@@ -53,12 +58,14 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from multi_purpose_mpc_tpu_torch.utils import kernels
+from multi_purpose_mpc_tpu_torch.utils import kernels, spans
 from multi_purpose_mpc_tpu_torch.utils.tree import leaves, rebuild
 
 # .disabled: depth of disable_capture() blocks; .records: the lists that
 # capture_seconds() blocks fill
 _local = threading.local()
+# StepGraphs built in this process (each a capture)
+captures = 0
 # one warm-up and capture stream a device, as torch.cuda.graph keeps one:
 # the allocator caches blocks per stream, so a new stream a call would
 # allocate the warm-up's tensors anew every call
@@ -153,6 +160,8 @@ class StepGraph:
 
     def __init__(self, fn: Callable, warmup: Optional[Callable] = None,
                  pool=None):
+        global captures
+        captures += 1
         stream = capture_stream()
         self.graph = torch.cuda.CUDAGraph()
         records = getattr(_local, "records", None)
@@ -193,13 +202,17 @@ class Entry:
     pool, being replayed one after the other on one stream).  A call
     copies its own arguments in (:meth:`copy_in`) and replays: what a
     graph reads must come from :attr:`args` or outlive the entry, since a
-    tensor read from anywhere else is baked in at the capture."""
+    tensor read from anywhere else is baked in at the capture.
+    ``ring``: the :class:`~.spans.StageRing` its graphs' steps record
+    into, if any, allocated before the capture; :meth:`replay` notes each
+    replay's row in it."""
 
-    def __init__(self, args):
+    def __init__(self, args, ring=None):
         self._flat = [x.clone(memory_format=torch.contiguous_format)
                       for x in leaves(args)]
         self.args = rebuild(args, self._flat)
         self.graphs = []
+        self.ring = ring
 
     def copy_in(self, args) -> None:
         new = leaves(args)
@@ -216,23 +229,34 @@ class Entry:
         self.graphs.append(g)
         return g
 
+    def replay(self, graph: StepGraph) -> None:
+        """Replay one of :attr:`graphs` and note its step in the ring."""
+        graph.replay()
+        if self.ring is not None:
+            self.ring.note()
+
 
 class RolloutEntry(Entry):
     """A rollout of ``steps`` steps: ``args = (carry0, inputs)`` copied
     in (the carry's buffer set 0 and the step's inputs), buffer set 1, the
-    (T, B) logs (made at the first step) and the device step counter
-    ``t``.
+    (T, B) logs (made at the first step), the device step counter ``t``
+    and the stage ring (``steps`` rows: its counter runs on across calls,
+    and each call records ``steps`` steps, so row ``i`` is the last
+    call's step ``i``).
     :meth:`step` applies ``sim_step(carry, dst, inputs) -> (carry, log)``
     once: it reads set ``parity``, writes its log row at ``t`` and its
-    new carry into the other set.  ``group``: the process group the step
-    all-reduces over, held so that its identity, part of the cache key,
-    is not reused while the entry lives."""
+    new carry into the other set; the step's stages are recorded, the
+    last (``post``) through the log row and the carry copy.  ``group``:
+    the process group the step all-reduces over, held so that its
+    identity, part of the cache key, is not reused while the entry
+    lives."""
 
     def __init__(self, carry0, inputs, steps: int, group=None):
-        super().__init__((carry0, inputs))
+        dev = leaves(carry0)[0].device
+        super().__init__((carry0, inputs),
+                         ring=spans.StageRing("rollout", steps, dev))
         self.steps = steps
         carry = leaves(self.args[0])
-        dev = carry[0].device
         self.bufs = (carry, [torch.empty_like(x) for x in carry])
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
         self.logs = self.log_tree = self.pair = None
@@ -245,8 +269,9 @@ class RolloutEntry(Entry):
     def step(self, sim_step: Callable, parity: int) -> None:
         src, dst = self.bufs[parity], self.bufs[1 - parity]
         like = self.args[0]
-        new, log = sim_step(rebuild(like, src), rebuild(like, dst),
-                            self.args[1])
+        with spans.recording(self.ring):
+            new, log = sim_step(rebuild(like, src), rebuild(like, dst),
+                                self.args[1])
         rows = leaves(log)
         if self.logs is None:
             with (torch.cuda.stream(self._home) if self._home is not None
@@ -259,6 +284,7 @@ class RolloutEntry(Entry):
             buf.index_copy_(0, self.t, row.unsqueeze(0))
         self.t.add_(1)
         _copy_carry(leaves(new), dst)
+        self.ring.end()
 
     def capture_pair(self, sim_step: Callable) -> None:
         """Run step 0 eagerly (the warm-up, a real step) and capture the

@@ -1,7 +1,8 @@
 """Tracing and timing helpers (port of ``utils/profiling.py``).
 
 * :func:`trace` — ``torch.profiler`` around a block, writing a Chrome
-  trace (open it in ``chrome://tracing`` or Perfetto);
+  trace (open it in ``chrome://tracing`` or Perfetto) and the recorder's
+  ``spans.json`` beside it;
 * :func:`timeit` / :func:`time_stages` — median seconds per call, fenced
   by :func:`fence`; CUDA events on the card, ``perf_counter`` on the CPU;
 * :func:`scan_marginal_cost` — the marginal seconds per iteration of a
@@ -9,7 +10,32 @@
 * :func:`capture_seconds` — the warm-up and capture seconds of every
   CUDA graph made inside a block (:func:`.graphs.capture_seconds`, which
   each :class:`~.graphs.StepGraph` reports to), what the graphs cost
-  before their first replay.
+  before their first replay;
+* :mod:`spans` — the recorder (:mod:`.spans`): the stage clock inside the
+  captured steps and the host spans of the rollout loop and the object
+  API.
+
+Reading ``spans.json`` (after a missed deadline, say: the last cycles of a
+control loop, split by stage).  Every time is ``perf_counter_ns`` of the
+process; the device's stamps are moved onto that clock by the
+calibration, within ``calibration_error_ns``.
+
+* ``spans``: ``names`` and ``records``, one list a span in the order they
+  opened: ``[slot, name id, parent slot (-1: none), request id, start,
+  end, profiled]``.  A rollout is a ``rollout`` span (request id: the
+  call) with ``inputs``, ``lookup``, ``capture`` or ``copy_in``,
+  ``replay`` and ``result``; an object-API cycle is ``get_control``
+  (request id: the cycle) with ``prepare``, ``replay`` (or ``capture``),
+  ``readback`` (blocked on the device) and ``unpack``, then ``drive``
+  under the same id with ``upload``, ``replay`` and ``clone``.  A span's
+  self time is its duration less its children's.
+* ``stages``: for each label (``rollout``: the last call's steps;
+  ``control`` and ``drive``: the object API's last cycles), ``names`` and
+  ``rows``, one a step: ``[request id, profiled, start of each stage...,
+  end]``.  Stage ``i`` lasted ``row[2 + i + 1] - row[2 + i]``; a control
+  row and a drive row of one cycle share its request id, and the
+  ``get_control`` span of that id encloses the control row.
+* ``counters``: ``graph_captures``, the CUDA graphs captured so far.
 
 PyTorch returns from a CUDA call before the device has finished, so every
 time here is taken after a synchronise of the devices the result lives on.
@@ -25,6 +51,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from multi_purpose_mpc_tpu_torch.utils import graphs, spans
 from multi_purpose_mpc_tpu_torch.utils.graphs import capture_seconds  # noqa: F401
 from multi_purpose_mpc_tpu_torch.utils.tree import leaves
 
@@ -46,7 +73,8 @@ def fence(out):
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None):
     """Profile a block with ``torch.profiler`` (CPU, and CUDA where there
-    is a card) and write its Chrome trace to ``logdir/trace.json``:
+    is a card) and write its Chrome trace to ``logdir/trace.json`` and the
+    recorder's spans, stage rows and counters to ``logdir/spans.json``:
     ``with trace(d): run_step()``.  ``logdir`` defaults to a directory
     under the temporary directory."""
     from torch.profiler import ProfilerActivity, profile
@@ -64,6 +92,8 @@ def trace(logdir: Optional[str] = None):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        spans.dump(os.path.join(logdir, "spans.json"),
+                   {"graph_captures": graphs.captures})
 
 
 def _time_once(run: Callable, device: Optional[torch.device]) -> float:

@@ -13,6 +13,7 @@ import contextlib
 import dataclasses
 import os
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -1080,3 +1081,73 @@ def test_capture_of_a_syncing_step_raises(cuda_device):
     with graphs.disable_capture():
         final, log = tsim._rollout(step, carry, 3)
     assert log[0].shape == (3, 4)
+
+
+# ---------------------------------------------------------------------------
+# The stage clock (utils/spans.py, csrc/stage_clock.cu) inside the graphs.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_captured_rollout_rows_advance_one_a_replay(cuda_sc):
+    """A cached rollout's ring holds its last call's steps: the first call
+    (warm-up + 5 replays) and a repeated one (6 replays) record 12 steps,
+    the ring's 6 rows are the second call's, and the device's stamps rise
+    through each step and from one step to the next."""
+    from multi_purpose_mpc_tpu_torch.utils import spans
+
+    sc, T = cuda_sc, 6
+    graphs.clear_cache()
+    for _ in range(2):
+        simulate_fleet(sc["grid"], sc["path"], sc["cfg"], sc["model"],
+                       SimConfig(max_steps=T), sc["fleet"], table=sc["table"])
+        rid = spans.request("rollout")
+    torch.cuda.synchronize()
+    ring = spans.ring("rollout")
+    t = ring.table()
+    assert ring.issued == 2 * T and int(ring.count) == 2 * T
+    assert t.names == ["locate", "select", "solve", "post"]
+    assert t.rid.tolist() == [rid] * T
+    assert (np.diff(t.ts, axis=1) > 0).all()
+    assert (t.ts[1:, 0] > t.ts[:-1, -1]).all()
+    graphs.clear_cache()
+
+
+@pytest.mark.cuda
+def test_api_ring_keeps_rows_across_replays(cuda_device):
+    """Five cycles of the object API's graphed loop: a control row and a
+    drive row a cycle under its id, in order on the device's clock."""
+    from multi_purpose_mpc_tpu_torch.utils import spans
+
+    m, rp, car, ctrl = _api_world(cuda_device)
+    first = spans.request("cycle") + 1
+    for _ in range(5):
+        car.drive(ctrl.get_control())
+    torch.cuda.synchronize()
+    ctl, drv = spans.ring("control").table(), spans.ring("drive").table()
+    ids = list(range(first, first + 5))
+    assert ctl.rid[-5:].tolist() == drv.rid[-5:].tolist() == ids
+    assert ctl.names == ["corridor", "pre_solve", "solve", "post"]
+    c, d = ctl.ts[-5:], drv.ts[-5:]
+    assert (np.diff(c, axis=1) > 0).all() and (np.diff(d, axis=1) > 0).all()
+    assert (c[:, -1] < d[:, 0]).all() and (d[:-1, -1] < c[1:, 0]).all()
+
+
+@pytest.mark.cuda
+def test_calibration_error_is_bounded(cuda_device, monkeypatch):
+    """%globaltimer against perf_counter_ns, read afresh (the clocks drift
+    apart by a few ppm): the tightest bracket is under a millisecond, and
+    a mark placed on the host clock falls inside the host stamps around
+    it, give or take the error."""
+    from multi_purpose_mpc_tpu_torch.utils import spans
+
+    monkeypatch.setattr(spans, "_calibrations", {})
+    cal = spans.calibration(cuda_device)
+    assert 0 <= cal.error_ns < 1_000_000
+    ring = spans.StageRing("calibration test", 1, cuda_device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    ring.end()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter_ns()
+    at = int(ring.table().ts[0, -1]) + cal.offset_ns
+    assert t0 - 2 * cal.error_ns <= at <= t1 + 2 * cal.error_ns
