@@ -15,7 +15,7 @@ graphed; phase 23 holds each path's first and repeated calls against
 the eager form.
 
 1. device: requires CUDA; prints the card, CUDA version and power limit;
-2. build: compiles the seven CUDA kernels and the stage clock from
+2. build: compiles the eight CUDA kernels and the stage clock from
    ``multi_purpose_mpc_tpu_torch/csrc``, one nvcc per source, in parallel;
 3. K2 (corridor selection) vs its plain twin, bitwise (NaN equal to NaN)
    or fail: the horizon blocks of 4096 feasible starts, their first 1 and
@@ -50,11 +50,11 @@ the eager form.
    steps), at K1's bars and bitwise, also at B = 1, 33 and N = 60; its
    scaling line ([K3 scaling]);
 9. dynamic grid: ``simulate_fleet(static_grid=False)`` at B = 4096 for 50
-   steps on the unchanged grid: K4 = K2 = K1 = 50 launches, K3 = 0, the
-   log (x, y, v, ok, floor) bitwise equal to phase 5's, health gates;
+   steps on the unchanged grid: K4 = K8 = K2 = K1 = 50 launches, K3 = 0,
+   the log (x, y, v, ok, floor) bitwise equal to phase 5's, health gates;
 10. sweep on the dynamic grid, B = 4096 x 50 steps, lanes tiling the
-    reference, strictly convex and time-optimal weight rows: K4 = K2 = K3
-    = 50, K1 = 0; accept per row; health gates (0 failed lanes included)
+    reference, strictly convex and time-optimal weight rows: K4 = K8 = K2
+    = K3 = 50, K1 = 0; accept per row; health gates (0 failed lanes included)
     over the reference lanes, at most 1 % failed lanes in the other rows;
 11. escalation: static grid, B = 4096, ``escalate_lanes=128``, 20 steps:
     accept rate >= phase 5's over the same steps, and no lane accepted at
@@ -74,19 +74,28 @@ the eager form.
     on both of its tables; kernel, plain and bound ms at B = 1, 1024 and
     4096, the bound's two operation counts (the per-cell work over every
     candidate, the pair tests of the in-range cells);
+14c. K8 (the free runs) vs its plain route (``horizon_segments`` on the
+    gathered table rows), bitwise: at B = 1, 33, 1024 and 4096 on phase
+    14's LiDAR write-back samples and on random ones (free shares 0.1 /
+    0.5 / 0.9) over the Sim_Track scanline table, and on Real_Track's
+    grid over its own; ``tests/free_runs_cases``' scanline patterns (K =
+    40, 128, 256) and planted width ties (at 5 / 128 and at twice the
+    safety margin, S = 8 and 32); kernel (device time), plain and bound
+    ms at B = 1, 1024 and 4096 (the bound: vals, indices, the table's
+    rows once and the outputs, over 3.35 TB/s);
 15. LiDAR fleet, known map = true map, B = 4096 x 50 steps, bench.py's
-    LiDAR, "auto" backends (cells scan, packed maps): K7 = K6 = K2 = K1 =
-    50 launches, K4 = K5 = K3 = 0; the log bitwise equal to phase 9's; the
-    maps stay the true grid; health gates; the step's stages by the stage
-    clock (``[stages]``: its ``scan`` is K7 with the scan's torch
-    prologue and epilogue);
+    LiDAR, "auto" backends (cells scan, packed maps): K7 = K6 = K8 = K2 =
+    K1 = 50 launches, K4 = K5 = K3 = 0; the log bitwise equal to phase
+    9's; the maps stay the true grid; health gates; the step's stages by
+    the stage clock (``[stages]``: its ``scan`` is K7 with the scan's
+    torch prologue and epilogue);
 16. discovery fleet from an all-free known map, B = 1024 x 50 steps, packed
-    then fused maps (K7 = K6 or K5 = K2 = K1 = 50): cells found per lane,
-    logs and final maps of the two runs bitwise equal, health gates; each
-    run's stages;
+    then fused maps (K7 = K6 or K5 = K8 = K2 = K1 = 50): cells found per
+    lane, logs and final maps of the two runs bitwise equal, health
+    gates; each run's stages;
 17. one car, ``simulate_lidar_loop``, 40 steps from an all-free known map
-    (K7 = K6 = K2 = K1 = 40): > 200 cells found, s > 1 m, not failed, max
-    |e_y| < 0.25;
+    (K7 = K6 = K8 = K2 = K1 = 40): > 200 cells found, s > 1 m, not
+    failed, max |e_y| < 0.25;
 18. horizon N = 60, 30 steps: tests/test_horizon.py's three starts with
     its bars (every lane progresses > 0.5 m, no failed lane, accept > 0.8,
     max |e_y| < 0.25); then ``simulate_fleet`` at B = 1024 from
@@ -130,7 +139,7 @@ the eager form.
     ``u = mpc.get_control(); car.drive(u)`` on the static map until the
     lap is done, at most 300 steps; (b) the same loop with
     ``LidarModel.scan`` + ``update_map`` every step, from the true map, 60
-    steps.  Each loop: per step K4 = K2 = K3 = 1 launch and no other
+    steps.  Each loop: per step K4 = K8 = K2 = K3 = 1 launch and no other
     kernel; the corridor of the first 5 steps bitwise equal to
     ``update_path_constraints`` through the plain versions on the card;
     accept >= 0.9, max |e_y| < 0.25 m, the infeasibility counter below
@@ -150,13 +159,13 @@ the eager form.
     (tests/torch_dist_worker.py) with a timeout, the kernels built by this
     process: phase 16's packed discovery fleet split over the ranks, each
     rank's log and final maps bitwise equal to the same lanes of phase 16's
-    run (K7 = K6 = K2 = K1 = 50 a rank), and a shared-grid fleet with
-    ``clear_free`` (B = 1024 x 50, dense write-back, the masks pooled by
-    one all-reduce per mask class a step), both ranks' maps and logs
-    bitwise equal to an unsharded run here (K7 = K4 = K2 = K1 = 50); (c) 25
-    static steps, ``save_fleet_state``, ``load_fleet_state``, 25 steps
-    (a repeated call: it captures nothing): the log bitwise equal to phase
-    5's; (d) a ``[profiling]`` line:
+    run (K7 = K6 = K8 = K2 = K1 = 50 a rank), and a shared-grid fleet
+    with ``clear_free`` (B = 1024 x 50, dense write-back, the masks
+    pooled by one all-reduce per mask class a step), both ranks' maps and
+    logs bitwise equal to an unsharded run here (K7 = K4 = K8 = K2 = K1 =
+    50); (c) 25 static steps, ``save_fleet_state``, ``load_fleet_state``,
+    25 steps (a repeated call: it captures nothing): the log bitwise equal
+    to phase 5's; (d) a ``[profiling]`` line:
     ``timeit`` of one static step beside CUDA events and phase 5's wall
     per step, ``scan_marginal_cost`` of K2 beside its ``[K2 scaling]``
     time;
@@ -172,8 +181,8 @@ the eager form.
     weights for the sweep), which captures nothing and grows the
     allocator's reserve by nothing, each against the eager form
     (``graphs.disable_capture()``) on its own inputs: logs, final states
-    and maps bitwise equal, the same launches (K7 once a step on every
-    LiDAR path); first call, repeated call,
+    and maps bitwise equal, the same launches (K7 and K8 once a step on
+    every LiDAR path, K8 on the dynamic grid); first call, repeated call,
     eager and replay times, capture seconds and peak memory per path; the
     object API's lap and its LiDAR loop (``scan`` and ``drive`` replay
     graphs too): controls and measurements bitwise equal, with the median
@@ -184,7 +193,7 @@ phase 22), error, times and bound
 (``bound_ms`` from the bytes each kernel must move and the float32
 operations of its plain version, counted in this run, against the H100
 SXM's 3.35 TB/s and 67 TFLOP/s; for K7 the operations its inputs need,
-``k7_ops``), the card's name and power limit, and as
+``k7_ops``; K8 by its bytes alone), the card's name and power limit, and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises (non-zero exit, no result line).  Imports no JAX.
@@ -759,8 +768,8 @@ def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
                 u = ctrl.get_control()
                 times["get_control"].append(time.perf_counter() - t0)
                 counts = read_counts()
-                if counts != expect(extract_occ=1, corridor_select=1,
-                                    admm_structured=1):
+                if counts != expect(extract_occ=1, free_runs=1,
+                                    corridor_select=1, admm_structured=1):
                     bad.append((k, counts))
                 out = (seen or captured)[-1]
                 if k < API_CHECKED_STEPS:
@@ -788,7 +797,7 @@ def api_phase(map_cfg, path_cfg, model, cfg, speed_cfg, obstacles, card,
             print(f"[api] {label}: {n} steps ({wall:.2f} s wall), lap done "
                   f"{done}, accept {acc:.4f}, max|e_y| {max_ey:.4f}, max "
                   f"infeasibility counter {max_count}, launches per step "
-                  f"K4 = K2 = K3 = 1 on {n - len(bad)} of {n}; corridor of "
+                  f"K4 = K8 = K2 = K3 = 1 on {n - len(bad)} of {n}; corridor of "
                   f"steps 0-{API_CHECKED_STEPS - 1} bitwise equal to the plain "
                   f"versions; wall ms per step median / p99: " + ", ".join(
                       f"{name} {pct(t, 50):.3f} / {pct(t, 99):.3f}"
@@ -970,7 +979,8 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
     torch.cuda.synchronize()
     dt_shared = time.perf_counter() - t0
     count(read_counts(), expect(admm_fused=STEPS, corridor_select=STEPS,
-                                extract_occ=STEPS, scan_cells=STEPS),
+                                extract_occ=STEPS, free_runs=STEPS,
+                                scan_cells=STEPS),
           "(b) unsharded shared")
     spec = dict(device="cuda", grid=grid, path=path, cfg=cfg, model=model,
                 lidar=s["lidar"], known=free, tasks=dict(
@@ -988,7 +998,8 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
         sl = slice(*out["lanes"]["lanes"])
         count(out["lanes"]["launches"], expect(
             admm_fused=STEPS, corridor_select=STEPS,
-            writeback_extract_packed=STEPS, scan_cells=STEPS),
+            writeback_extract_packed=STEPS, free_runs=STEPS,
+            scan_cells=STEPS),
             f"(b) rank {r} per-lane")
         same_log(out["lanes"]["result"].log, lanes_of(lane_ref.log, sl),
                  f"(b) rank {r} per-lane vs phase 16", static_log._fields)
@@ -997,7 +1008,7 @@ def scale_out_phase(s, card, reset_counts, read_counts, expect):
                                  "phase 16's")
         count(out["shared"]["launches"], expect(
             admm_fused=STEPS, corridor_select=STEPS, extract_occ=STEPS,
-            scan_cells=STEPS), f"(b) rank {r} shared")
+            free_runs=STEPS, scan_cells=STEPS), f"(b) rank {r} shared")
         same_log(out["shared"]["result"].log, lanes_of(shared_ref.log, sl),
                  f"(b) rank {r} shared vs unsharded", static_log._fields)
         if not torch.equal(out["shared"]["occ"], shared_occ.cpu()):
@@ -1359,13 +1370,13 @@ def main():
     # ---- phase 2: build ----
     names = ("corridor_select", "admm_fused", "admm_structured", "extract_occ",
              "writeback_extract", "writeback_extract_packed", "scan_cells",
-             "stage_clock")
+             "free_runs", "stage_clock")
     t0 = time.perf_counter()
     for name, sec in kernels.build_all(names).items():
         kernels.load(name)
         print(f"[build] {name}.cu -> {kernels.library_path(name)} in "
               f"{sec:.2f} s", flush=True)
-    print(f"[build] all eight in {time.perf_counter() - t0:.2f} s wall",
+    print(f"[build] all nine in {time.perf_counter() - t0:.2f} s wall",
           flush=True)
     counted = kernels.launch_counters()
 
@@ -1756,7 +1767,7 @@ def main():
     print(f"[dynamic] simulate_fleet(static_grid=False) B={B} x {STEPS} "
           f"steps: launches {dyn_launches}", flush=True)
     if dyn_launches != expect(admm_fused=STEPS, corridor_select=STEPS,
-                              extract_occ=STEPS):
+                              extract_occ=STEPS, free_runs=STEPS):
         raise AssertionError(f"dynamic path launches {dyn_launches}")
     same_log(dyn.log, static_log, "dynamic grid vs static grid")
     h = health(dyn.log, dyn.final_state, path, model, STEPS)
@@ -1776,7 +1787,7 @@ def main():
     print(f"[sweep] dynamic grid, WeightSet rows {SWEEP_ROWS} tiled over "
           f"B={B} x {STEPS} steps: launches {sweep_launches}", flush=True)
     if sweep_launches != expect(corridor_select=STEPS, admm_structured=STEPS,
-                                extract_occ=STEPS):
+                                extract_occ=STEPS, free_runs=STEPS):
         raise AssertionError(f"sweep path launches {sweep_launches}")
     for i, name in enumerate(SWEEP_ROWS):
         lanes = row_of == i
@@ -1933,6 +1944,7 @@ def main():
           f"free={pad_free}", flush=True)
     if not (bitwise and vs_k5 and pad_free):
         raise AssertionError("K6 differs from its plain version or from K5")
+    lidar_vals = ker6[1]  # a LiDAR step's extracted samples, for phase 14c
     del ker5, ker6, ref6
     k6_times = {}
     for n in (LIDAR_B, B):
@@ -2018,6 +2030,71 @@ def main():
         f"({card})", flush=True)
     k7_ms, k7_plain_ms, k7_bound = k7_rows[B][:3]
 
+    # ---- phase 14c: K8 vs plain ----
+    import free_runs_cases as frc
+
+    rt_scan = corridor_extract.build_scanline_table(rt_grid, rt_path,
+                                                    rt_cfg.n_scan_samples)
+    rt_idx = _locate_horizon(rt_fleet, rt_path, rt_cfg)[1].repeat(
+        B // RT_BATCH, 1)
+    rt_vals = corridor_extract.extract_occ_cuda(
+        rt_grid.occ, *corridor_extract.horizon_pixels(rt_scan, rt_idx))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shares = torch.tensor([0.1, 0.5, 0.9], device=dev)[
+        torch.arange(B, device=dev) % 3]
+    rand_vals = (torch.rand(lidar_vals.shape, generator=gen, device=dev)
+                 < shares[:, None, None]).float()
+    sm2, rt_sm2 = 2.0 * sm, 2.0 * rt_model.safety_margin
+    k8_cases = [
+        (f"{label} B={n}", vals[:n].contiguous(), tb, ix[:n].contiguous(), w,
+         S)
+        for n in (1, 33, LIDAR_B, B)
+        for label, vals, tb, ix, w in (
+            ("Sim_Track, a LiDAR write-back's samples (phase 14)", lidar_vals,
+             scan, idx0, sm2),
+            ("Sim_Track, random samples (free shares 0.1 / 0.5 / 0.9)",
+             rand_vals, scan, idx0, sm2),
+            ("Real_Track, its grid's samples", rt_vals, rt_scan, rt_idx,
+             rt_sm2))]
+    k8_cases += [(f"scanline patterns K={k} B=33", *frc.case(
+        33, cfg.N, k, seed=k, device=dev), frc.TIE_WIDTH, S)
+        for k in (40, 128, 256)]
+    k8_cases += [(f"width ties at {w} S={slots}", *frc.case(
+        33, cfg.N, cfg.n_scan_samples, seed=slots, ties=True, min_width=w,
+        device=dev), w, slots) for w in (frc.TIE_WIDTH, sm2)
+        for slots in (S, 32)]
+    k8_err = 0.0
+    for label, vals, tb, ix, w, slots in k8_cases:
+        ker = corridor_extract.free_runs_cuda(vals, tb, ix, w, slots)
+        ref = horizon_segments(vals, corridor_extract.horizon_tables(tb, ix),
+                               w, slots)
+        torch.cuda.synchronize()
+        bitwise = all(same_bits(x, y) for x, y in zip(ker, ref))
+        k8_err = max(k8_err, bit_err(zip(ker[:2], ref[:2])))
+        print(f"[K8] free_runs vs plain, {label}: bitwise={bitwise}; kept "
+              f"runs {int(ker.valid.sum())} of {ker.valid.numel()} slots",
+              flush=True)
+        if not bitwise:
+            raise AssertionError(f"K8 differs from its plain version ({label})")
+    k8_rows = {}
+    for n in (1, LIDAR_B, B):
+        a8 = (lidar_vals[:n].contiguous(), scan, idx0[:n].contiguous(), sm2,
+              S)
+        k8_rows[n] = (
+            device_ms(lambda: corridor_extract.free_runs_cuda(*a8), 50),
+            cuda_ms(lambda: horizon_segments(
+                a8[0], corridor_extract.horizon_tables(scan, a8[2]), sm2, S),
+                3),
+            bound(nbytes(a8[0], a8[2], scan.inb, scan.cx, scan.cy,
+                         corridor_extract.free_runs_cuda(*a8)), 0))
+    print("[K8] " + "; ".join(
+        f"B={n}: kernel {k:.4f} ms (device time), plain {p:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}: the samples, the horizon indices, the "
+        f"table's inb / cx / cy once, the outputs)"
+        for n, (k, p, b) in k8_rows.items()) + f" ({card})", flush=True)
+    k8_ms, k8_plain_ms, k8_bound = k8_rows[B]
+    del lidar_vals, rand_vals, rt_vals, k8_cases, ker, ref
+
     # ---- phase 15: LiDAR fleet, known map = true map ----
     lidar_kw = dict(table=scan, cells=cells)
     reset_counts()
@@ -2031,7 +2108,7 @@ def main():
           f"(cells scan, packed maps): launches {lidar_launches}", flush=True)
     if lidar_launches != expect(admm_fused=STEPS, corridor_select=STEPS,
                                 writeback_extract_packed=STEPS,
-                                scan_cells=STEPS):
+                                free_runs=STEPS, scan_cells=STEPS):
         raise AssertionError(f"LiDAR fleet launches {lidar_launches}")
     same_log(lres.log, dyn.log, "LiDAR fleet (known = true)")
     if not torch.equal(locc, grid.occ.expand_as(locc)):
@@ -2060,7 +2137,7 @@ def main():
         got = read_counts()
         kernel = "writeback_extract_packed" if wb == "packed" else "writeback_extract"
         if got != expect(admm_fused=STEPS, corridor_select=STEPS,
-                         scan_cells=STEPS, **{kernel: STEPS}):
+                         scan_cells=STEPS, free_runs=STEPS, **{kernel: STEPS}):
             raise AssertionError(f"discovery fleet ({wb}) launches {got}")
         disc_launches[wb] = got
         stage_line(f"discovery step ({wb} maps) at B={LIDAR_B}")
@@ -2103,7 +2180,7 @@ def main():
     if loop_launches != expect(admm_fused=LOOP_STEPS,
                                corridor_select=LOOP_STEPS,
                                writeback_extract_packed=LOOP_STEPS,
-                               scan_cells=LOOP_STEPS):
+                               free_runs=LOOP_STEPS, scan_cells=LOOP_STEPS):
         raise AssertionError(f"LiDAR loop launches {loop_launches}")
     n_found = int((free.occ - known.occ).sum())
     s_end = float(loop.final_state.s[0])
@@ -2406,7 +2483,7 @@ def main():
     from multi_purpose_mpc_tpu_torch.parallel.fleet import (
         simulate_fleet_sharded, simulate_lidar_fleet_sharded)
 
-    scans = ("scan_cells",)  # every LiDAR path: K7 once a step
+    scans = ("scan_cells", "free_runs")  # every LiDAR path: K7, K8 a step
 
     def nccl_runs(mesh):
         return [
@@ -2440,11 +2517,12 @@ def main():
             table=tb(fresh)), B, STEPS),
         ("dynamic grid", lambda fresh: simulate_fleet(
             *w1(fresh), cfg, model, dyn_sim, fl(fresh),
-            table=scan2 if fresh else scan), B, STEPS),
+            table=scan2 if fresh else scan), B, STEPS, ("free_runs",)),
         ("dynamic sweep", lambda fresh: simulate_fleet(
             *w1(fresh), cfg, model, dyn_sim, fl(fresh),
             table=scan2 if fresh else scan,
-            weights=weights2 if fresh else weights), B, STEPS),
+            weights=weights2 if fresh else weights), B, STEPS,
+         ("free_runs",)),
         ("escalation", lambda fresh: simulate_fleet(
             *w1(fresh), esc_cfg, model, SimConfig(max_steps=ESC_STEPS),
             fl(fresh), table=tb(fresh)), B, ESC_STEPS),
@@ -2488,8 +2566,9 @@ def main():
     # launches: the path's run in its phase plus phase 22's runs (its
     # ranks' included).  library_ms: one PyTorch call computing the same
     # function exists only for K4 (advanced indexing); none solves the QPs,
-    # selects corridors, writes and reads a map or sweeps cells against
-    # beams in one call.  K7 replaces XLA code, not a pallas_call
+    # selects corridors, writes and reads a map, sweeps cells against
+    # beams or finds free runs in one call.  K7 and K8 replace XLA code,
+    # not a pallas_call
     print(json.dumps({"kernels": [
         row("corridor_select", "ops/corridor_pallas.py:38",
             launches["corridor_select"] + scale["corridor_select"], k2_err,
@@ -2519,6 +2598,9 @@ def main():
         row("scan_cells", "ops/lidar.py:239",
             lidar_launches["scan_cells"] + scale["scan_cells"], k7_err,
             k7_ms, k7_plain_ms, k7_bound),
+        row("free_runs", "ops/constraints.py:54",
+            lidar_launches["free_runs"] + scale["free_runs"], k8_err, k8_ms,
+            k8_plain_ms, k8_bound),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

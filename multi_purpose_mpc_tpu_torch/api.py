@@ -13,7 +13,7 @@ MPC.py:15, lidar_model.py:14).  Each is a thin host-side wrapper owning
 tensors on one device: the card unless ``Map(..., device=...)`` names
 another, and every other object takes the device of the ``Map`` it is
 built on.  ``get_control`` runs :func:`~.mpc.mpc_step` on the live grid —
-on the card kernel K4 (scanline occupancy), the free runs, kernel K2
+on the card kernel K4 (scanline occupancy), the free runs (K8), kernel K2
 (corridor selection), the assembly and kernel K3 (the ADMM solve) — and
 copies its results to the host once.  For throughput use
 :mod:`multi_purpose_mpc_tpu_torch.simulation`, which steps whole fleets.

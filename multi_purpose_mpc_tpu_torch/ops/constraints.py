@@ -14,7 +14,7 @@
 main path's selection is kernel K2 (:mod:`.corridor_cuda`), whose twin uses
 the kernel's cross-product formulation.  :func:`update_path_constraints`,
 the corridor of a lane read from the grid as it is now, runs the
-dynamic-grid machinery: kernel K4, the free runs and K2.
+dynamic-grid machinery: kernel K4, the free runs (K8) and K2.
 """
 
 from __future__ import annotations
@@ -243,10 +243,10 @@ def update_path_constraints(grid: GridMap, path: PathData, wp_id, N: int,
     :class:`Corridor` of (B, N).
 
     Kernel K4 reads the scanline samples of the cached
-    :func:`corridor_tables`, the free runs are found and written into the
-    window block, and kernel K2 selects: on a CUDA grid the kernels, on a
-    CPU grid their plain versions.  ``N`` is any horizon K2 takes
-    (1 <= N <= 513)."""
+    :func:`corridor_tables`, kernel K8 finds the free runs, they are
+    written into the window block, and kernel K2 selects: on a CUDA grid
+    the kernels, on a CPU grid their plain versions.  ``N`` is any horizon
+    K2 takes (1 <= N <= 513)."""
     from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select
     from multi_purpose_mpc_tpu_torch.ops.corridor_extract import fleet_dynamic_segments
     from multi_purpose_mpc_tpu_torch.ops.horizon_table import horizon_block_from_segments

@@ -18,15 +18,15 @@ same either way, bit for bit.
   per rollout; every step goes through the table, kernel K2 and kernel K1;
 * dynamic grid (``SimConfig(static_grid=False)``): the scanline table is
   built once per rollout, and every step re-extracts the free segments
-  from the grid (kernel K4), writes them into the horizon block and
-  selects the corridor (K2) before the solve;
+  from the grid (kernel K4, then its free runs, K8), writes them into the
+  horizon block and selects the corridor (K2) before the solve;
 * ``weights``: a per-lane :class:`~.mpc.WeightSet` sweep on either grid,
   solved by kernel K3 instead of K1;
 * LiDAR in the loop (:func:`simulate_lidar_fleet`,
   :func:`simulate_lidar_loop`): every step scans the true world, writes the
   hits into the known maps and re-extracts the corridor from them — on the
   card through kernel K6 (bit-packed per-lane maps) or K5, which write and
-  extract in one launch, then K2 and K1 (K3 under ``weights``).
+  extract in one launch, then K8, K2 and K1 (K3 under ``weights``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from multi_purpose_mpc_tpu_torch.ops.constraints import (
 from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select
 from multi_purpose_mpc_tpu_torch.ops.corridor_extract import (
     ScanlineTable, build_scanline_table, fleet_dynamic_segments,
-    horizon_segments, horizon_tables)
+    horizon_pixels, horizon_segments_from_table)
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap
 from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     build_horizon_table, empty_segments, horizon_block_from_segments,
@@ -391,9 +391,9 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
 
     Backends (:func:`resolve_lidar_backends`): ``scatter`` / ``dense``
     write the scans into the maps and run the dynamic-grid step (kernel K4,
-    free runs, K2, then K1, or K3 under ``weights``); ``fused`` / ``packed``
-    write and extract in one launch (kernel K5 on float32 maps, K6 on maps
-    bit-packed 32 rows per word), then free runs, K2 and the solve.
+    the free runs (K8), K2, then K1, or K3 under ``weights``); ``fused`` /
+    ``packed`` write and extract in one launch (kernel K5 on float32 maps,
+    K6 on maps bit-packed 32 rows per word), then K8, K2 and the solve.
     ``table``: a prebuilt :class:`ScanlineTable`; ``cells``: the ``cells``
     scan's table (:func:`resolve_cell_table`).  ``weights``: a per-lane
     :class:`~.mpc.WeightSet`.
@@ -462,15 +462,16 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
             path = x["path"]
             spans.stage("locate")
             located, idx = _locate_horizon(st, path, cfg)
-            h = horizon_tables(x["table"], idx)
+            px, py = horizon_pixels(x["table"], idx)
             spans.stage("scan")
             scans = scans_of(st, x)
             hpx, hpy = hit_pixels(x["frame"], scans, H, W)
             spans.stage("writeback")
             occ, vals = fused(occ, hpx.contiguous(), hpy.contiguous(),
-                              scans.hit.contiguous(), h.px, h.py, out=dst[1])
+                              scans.hit.contiguous(), px, py, out=dst[1])
             spans.stage("free_runs")
-            segs = horizon_segments(vals, h, 2.0 * sm, cfg.max_segments)
+            segs = horizon_segments_from_table(vals, x["table"], idx, 2.0 * sm,
+                                               cfg.max_segments)
             spans.stage("select")
             corridor, blk = _select_corridor_batched(x["base"], located[0],
                                                      segs, cfg, sm)

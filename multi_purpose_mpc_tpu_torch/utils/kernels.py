@@ -120,7 +120,8 @@ def launch_counters() -> dict:
             "writeback_extract": (mapping.writeback_extract_cuda, "launches"),
             "writeback_extract_packed": (
                 mapping.writeback_extract_packed_cuda, "launches"),
-            "scan_cells": (lidar.cells_min_cuda, "launches")}
+            "scan_cells": (lidar.cells_min_cuda, "launches"),
+            "free_runs": (corridor_extract.free_runs_cuda, "launches")}
 
 
 def launch_counts() -> dict:

@@ -158,6 +158,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         lidar.cells_min_cuda(w["grid"], w["wpc"], w["wp_id"], w["cx"],
                              w["cy"], w["ux"], w["uy"], w["support"], 1.0)
+    from free_runs_cases import case
+
+    with pytest.raises(ValueError):
+        corridor_extract.free_runs_cuda(*case(2, 3, 128, seed=0), 0.04, 8)
 
 
 @pytest.mark.cuda
@@ -362,20 +366,23 @@ def test_k5_k6_on_a_real_track_sized_grid(cuda_device):
 @pytest.mark.cuda
 def test_lidar_fleet_on_card_equals_dynamic(cuda_sc):
     """On the card the LiDAR fleet with the true map as known map (cells
-    scan, packed write-back: K7, K6, K2, K1) drives exactly as the dynamic-grid
-    fleet (K4, K2, K1), and its maps stay the true grid."""
+    scan, packed write-back: K7, K6, K8, K2, K1) drives exactly as the
+    dynamic-grid fleet (K4, K8, K2, K1), and its maps stay the true grid."""
     kw = dict(path=cuda_sc["path"], cfg=cuda_sc["cfg"], model=cuda_sc["model"],
               state0=cuda_sc["fleet"])
     n6 = mapping.writeback_extract_packed_cuda.launches
     n7 = lidar.cells_min_cuda.launches
+    n8 = kernels.launch_counts()["free_runs"]
     res, occ = simulate_lidar_fleet(
         cuda_sc["grid"], cuda_sc["grid"], sim=SimConfig(max_steps=3),
         lidar=LidarConfig(FoV=360, range=1.0, resolution=4,
                           n_ray_samples=192), **kw)
-    dyn = simulate_fleet(cuda_sc["grid"],
-                         sim=SimConfig(max_steps=3, static_grid=False), **kw)
     assert mapping.writeback_extract_packed_cuda.launches == n6 + 3
     assert lidar.cells_min_cuda.launches == n7 + 3
+    assert kernels.launch_counts()["free_runs"] == n8 + 3
+    dyn = simulate_fleet(cuda_sc["grid"],
+                         sim=SimConfig(max_steps=3, static_grid=False), **kw)
+    assert kernels.launch_counts()["free_runs"] == n8 + 6
     for f in dyn.log._fields:
         assert torch.equal(getattr(res.log, f), getattr(dyn.log, f)), f
     assert torch.equal(occ, cuda_sc["grid"].occ.expand_as(occ))
@@ -446,6 +453,157 @@ def test_k7_kernel_breaks_ties_as_plain(cuda_device, table):
     sx = torch.floor((w["x"] - w["grid"].origin[0]) / res)
     sy = torch.floor((w["y"] - w["grid"].origin[1]) / res)
     assert torch.equal(ker[1][:, 45], (sy + 1) * W + sx + 2)
+
+
+# ---------------------------------------------------------------------------
+# K8, the free runs: bitwise equal to its plain route
+# ---------------------------------------------------------------------------
+
+def _k8_same(vals, table, idx, min_width, S):
+    """K8 through the dispatching wrapper against its plain route on the
+    card; returns the kernel's candidates."""
+    n8 = corridor_extract.free_runs_cuda.launches
+    ker = corridor_extract.horizon_segments_from_table(vals, table, idx,
+                                                       min_width, S)
+    ref = corridor_extract.horizon_segments(
+        vals, corridor_extract.horizon_tables(table, idx), min_width, S)
+    torch.cuda.synchronize()
+    assert corridor_extract.free_runs_cuda.launches == n8 + 1
+    for k, r in zip(ker, ref):
+        assert k.dtype == r.dtype and k.shape == r.shape
+        assert bool((k.view(torch.uint8) == r.view(torch.uint8)).all())
+    return ker
+
+
+@pytest.fixture(scope="module")
+def k8_tables(cuda_sc):
+    """Sim_Track's and Real_Track's scanline tables on the card, each with
+    its path and safety margin."""
+    from multi_purpose_mpc_tpu_torch.config import real_track_preset
+
+    rt_map, rt_path_cfg, rt_model, rt_cfg, _, _ = real_track_preset(ASSETS)
+    rt_grid = load_grid_map(rt_map, device=cuda_sc["grid"].device)
+    rt_path = build_reference_path(rt_grid, rt_path_cfg)
+    K = cuda_sc["cfg"].n_scan_samples
+    return {name: (corridor_extract.build_scanline_table(g, p, K), g, p,
+                   2.0 * m.safety_margin)
+            for name, g, p, m in (
+                ("sim_track", cuda_sc["grid"], cuda_sc["path"],
+                 cuda_sc["model"]),
+                ("real_track", rt_grid, rt_path, rt_model))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["sim_track", "real_track"])
+@pytest.mark.parametrize("B", [1, 33, 4096])
+def test_k8_kernel_bitwise_equals_plain(cuda_sc, k8_tables, B, table):
+    """Random horizons on the scanline tables of both tracks: the samples
+    of the track's grid, and random 0/1 samples at free shares 0.1, 0.5
+    and 0.9 (lanes in turn)."""
+    from multi_purpose_mpc_tpu_torch.ops.path import gather_waypoint_index
+
+    scan, grid, path, mw = k8_tables[table]
+    dev, N = grid.device, cuda_sc["cfg"].N
+    gen = torch.Generator(device=dev).manual_seed(B)
+    wp = torch.randint(0, path.n_wp, (B, 1), generator=gen, device=dev)
+    idx = gather_waypoint_index(path, wp + 1,
+                                torch.arange(N, device=dev)[None])
+    occ = corridor_extract.extract_occ(grid.occ, *corridor_extract
+                                       .horizon_pixels(scan, idx))
+    share = torch.tensor([0.1, 0.5, 0.9], device=dev)[
+        torch.arange(B, device=dev) % 3]
+    rand = (torch.rand(occ.shape, generator=gen, device=dev)
+            < share[:, None, None]).float()
+    for vals in (occ, rand):
+        out = _k8_same(vals, scan, idx, mw, cuda_sc["cfg"].max_segments)
+        assert out.valid.shape == (B, N, cuda_sc["cfg"].max_segments)
+        # one lane at free share 0.1 may hold no run as wide as the margin
+        assert bool(out.valid.any()) or (vals is rand and B == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [40, 128, 256])
+def test_k8_kernel_bitwise_on_scanline_patterns(cuda_device, K):
+    """free_runs_cases' patterns: random, all free, all occupied, runs
+    touching sample 0 and K - 1, more runs than slots, out-of-bounds
+    samples; one warp ballot word short of full at K = 40, eight at
+    256."""
+    from free_runs_cases import TIE_WIDTH, case
+
+    for B in (1, 33):
+        vals, table, idx = case(B, 30, K, seed=K + B, device=cuda_device)
+        for mw in (TIE_WIDTH, 0.0):
+            kept = _k8_same(vals, table, idx, mw, 8).valid.sum(-1)
+            assert int(kept.max()) == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_width", [5.0 / 128, 0.04])
+@pytest.mark.parametrize("S", [8, 32])
+def test_k8_kernel_breaks_width_ties_as_plain(cuda_device, min_width, S):
+    """Widths planted on min_width: exactly (3/128, 4/128 against 5/128;
+    (w, 0)), an ulp either side, and within an ulp or two (polar); the
+    kernel's hypotf rounds as torch.hypot does on the card."""
+    from free_runs_cases import case, tie_row
+
+    vals, table, idx = case(33, 30, 128, seed=S, ties=True,
+                            min_width=min_width, device=cuda_device)
+    kept = _k8_same(vals, table, idx, min_width, S).valid
+    runs = int((tie_row(128) > 0.5).sum()) // 2
+    assert 0 < int(kept.sum()) < min(runs, S) * kept.shape[0] * kept.shape[1]
+
+
+@pytest.mark.cuda
+def test_k8_on_a_lidar_rollout_steps_samples(cuda_sc):
+    """The samples of a real LiDAR step: a discovery fleet's scans of the
+    true world written into all-free packed maps by K6, as the packed
+    step does, then K8 on them."""
+    from multi_purpose_mpc_tpu_torch.ops.lidar import hit_pixels, scan_fleet
+    from multi_purpose_mpc_tpu_torch.simulation import resolve_cell_table
+
+    sc = cuda_sc
+    grid, path, cfg, fleet = sc["grid"], sc["path"], sc["cfg"], sc["fleet"]
+    lid = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=192)
+    scan = corridor_extract.build_scanline_table(grid, path,
+                                                 cfg.n_scan_samples)
+    cells = resolve_cell_table(grid, path, lid,
+                               lidar.occupied_cell_table(grid.occ), "cells")
+    _, idx = _locate_horizon(fleet, path, cfg)
+    scans = scan_fleet(grid, fleet.x, fleet.y, fleet.psi, lid, cells=cells,
+                       backend="cells", wp_id=fleet.wp_id)
+    hpx, hpy = hit_pixels(grid, scans, *grid.occ.shape)
+    free = mapping.pack_rows(torch.ones_like(grid.occ).expand(
+        fleet.batch, -1, -1).contiguous())
+    px, py = corridor_extract.horizon_pixels(scan, idx)
+    _, vals = mapping.writeback_extract_packed_cuda(
+        free, hpx.contiguous(), hpy.contiguous(), scans.hit.contiguous(), px,
+        py)
+    assert bool((vals < 0.5).any())  # the scans' hits reach the scanlines
+    out = _k8_same(vals, scan, idx, 2.0 * sc["model"].safety_margin,
+                   cfg.max_segments)
+    assert bool((out.valid.sum(-1) >= 2).any())
+
+
+@pytest.mark.cuda
+def test_k8_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    from free_runs_cases import case
+
+    vals, table, idx = case(2, 3, 128, seed=0, device=cuda_device)
+    ok = corridor_extract.free_runs_cuda(vals, table, idx, 0.04, 8)
+    assert ok.valid.shape == (2, 3, 8)
+    bad = [(vals.double(), table, idx, 0.04, 8),
+           (vals.transpose(0, 1).contiguous().transpose(0, 1), table, idx,
+            0.04, 8),
+           (vals, table, idx.int(), 0.04, 8),
+           (vals, table, idx.cpu(), 0.04, 8),
+           (vals, table._replace(cx=table.cx.double()), idx, 0.04, 8),
+           (vals, table._replace(inb=table.inb.float()), idx, 0.04, 8),
+           (vals, table, idx, torch.tensor(0.04, device=cuda_device), 8),
+           (vals, table, idx, 0.04, 0),
+           (*case(1, 2, 257, seed=0, device=cuda_device), 0.04, 8)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            corridor_extract.free_runs_cuda(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -744,7 +902,7 @@ def _plain_corridor(grid, path, wp, N, min_width, sm, n_samples, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 12, 30, 60])
 def test_update_path_constraints_on_card_bitwise_equals_plain(cuda_sc, N):
-    """The object API's corridor (K4, the free runs, K2) against the same
+    """The object API's corridor (K4, K8, K2) against the same
     function through the plain versions, bitwise, B = 1, at waypoints
     whose horizon wraps past the end of the circular path."""
     from multi_purpose_mpc_tpu_torch.ops import constraints as cons
@@ -755,10 +913,12 @@ def test_update_path_constraints_on_card_bitwise_equals_plain(cuda_sc, N):
     for wp in (0, 57, path.n_wp - 5, path.n_wp - 1):
         w = torch.tensor([wp], dtype=torch.int32, device=grid.device)
         k4 = corridor_extract.extract_occ_cuda.launches
+        k8 = corridor_extract.free_runs_cuda.launches
         k2 = corridor_cuda.corridor_select_cuda.launches
         out = cons.update_path_constraints(grid, path, w, N, 2.0 * sm, sm,
                                            cfg.n_scan_samples, S)
         assert corridor_extract.extract_occ_cuda.launches == k4 + 1
+        assert corridor_extract.free_runs_cuda.launches == k8 + 1
         assert corridor_cuda.corridor_select_cuda.launches == k2 + 1
         ref = _plain_corridor(grid, path, w, N, 2.0 * sm, sm,
                               cfg.n_scan_samples, S)
@@ -769,8 +929,8 @@ def test_update_path_constraints_on_card_bitwise_equals_plain(cuda_sc, N):
 
 @pytest.mark.cuda
 def test_get_control_launches_k4_k2_k3_once(cuda_device):
-    """One step of the object API's two-call loop on the card runs K4, K2
-    and K3 once each and no other kernel."""
+    """One step of the object API's two-call loop on the card runs K4, K8,
+    K2 and K3 once each and no other kernel."""
     from multi_purpose_mpc_tpu_torch import api
 
     map_cfg, path_cfg, model, cfg, speed_cfg, obstacles = sim_track_preset(ASSETS)
@@ -788,6 +948,7 @@ def test_get_control_launches_k4_k2_k3_once(cuda_device):
                     "umax": np.array([cfg.v_max, kmax])}, cfg.ay_max)
     rp.compute_speed_profile(speed_cfg)
     counters = ((corridor_extract.extract_occ_cuda, "launches", 1),
+                (corridor_extract.free_runs_cuda, "launches", 1),
                 (corridor_cuda.corridor_select_cuda, "launches", 1),
                 (admm_cuda.solve_ltv_qp_structured_cuda, "launches", 1),
                 (admm_cuda.solve_ltv_qp_structured_cuda, "launches_cr", 0),
@@ -984,7 +1145,7 @@ def test_packed_lidar_fleet_graph_equals_eager(cuda_sc):
     _assert_same_tree(g, e)
     assert ng == ne
     assert ng["writeback_extract_packed"] == ng["corridor_select"] == T
-    assert ng["scan_cells"] == T
+    assert ng["scan_cells"] == ng["free_runs"] == T
     assert bool((g[1] < 0.5).sum() > 0)  # the scans found cells
 
 
@@ -1016,8 +1177,8 @@ def _api_world(device):
 def test_get_control_graph_equals_eager(cuda_device, lidar):
     """20 steps of the API lap (with ``LidarModel.scan`` + ``update_map``
     before each control), graphed beside eager on their own cars: the same
-    controls and measurements bit for bit and K4 = K2 = K3 = 1 launch a
-    step on both."""
+    controls and measurements bit for bit and K4 = K8 = K2 = K3 = 1
+    launch a step on both."""
     from multi_purpose_mpc_tpu_torch import api
 
     def loop():
@@ -1036,8 +1197,8 @@ def test_get_control_graph_equals_eager(cuda_device, lidar):
     assert np.array_equal(g[0], e[0]) and g[0][:, 0].min() > 0
     _assert_same_tree(g[1:], e[1:])
     assert ng == ne
-    assert ng["extract_occ"] == ng["corridor_select"] == \
-        ng["admm_structured"] == 20
+    assert ng["extract_occ"] == ng["free_runs"] == ng["corridor_select"] \
+        == ng["admm_structured"] == 20
 
 
 @pytest.mark.cuda
@@ -1045,7 +1206,7 @@ def test_get_control_follows_a_new_speed_profile(cuda_device):
     """Five steps of the API lap, then ``compute_speed_profile`` with
     other limits (it replaces the path, whose corridor tables the first
     graph read), then five more: every control and prediction bitwise
-    equal to the eager loop's, K4 = K2 = K3 = 1 launch a step."""
+    equal to the eager loop's, K4 = K8 = K2 = K3 = 1 launch a step."""
 
     def loop():
         m, rp, car, ctrl = _api_world(cuda_device)
@@ -1064,8 +1225,8 @@ def test_get_control_follows_a_new_speed_profile(cuda_device):
     assert np.array_equal(g[0], e[0]) and g[0][:, 0].min() > 0
     _assert_same_tree(g[1], e[1])
     assert ng == ne
-    assert ng["extract_occ"] == ng["corridor_select"] == \
-        ng["admm_structured"] == 10
+    assert ng["extract_occ"] == ng["free_runs"] == ng["corridor_select"] \
+        == ng["admm_structured"] == 10
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Port parity, the dynamic-grid fleet: the scanline table, kernel K4's
 plain version (``extract_occ_gather``), the memory-bounded
-``segments_from_samples``, ``fleet_dynamic_segments`` and the dynamic
-rollout, against the JAX package on the CPU and against the float64
-oracle.
+``segments_from_samples``, kernel K8's plain route
+(``horizon_segments_from_table``), ``fleet_dynamic_segments`` and the
+dynamic rollout, against the JAX package on the CPU and against the
+float64 oracle.
 
 Everything but the rollouts is integer reads and float32 copies of the same
 data, so the bar is bitwise.  The per-step rollout bars are those of
@@ -22,6 +23,7 @@ from multi_purpose_mpc_tpu.ops.corridor_extract import (
     build_scanline_table as jbuild_scan, extract_occ_gather as jgather,
     extract_occ_pallas as jpallas, fleet_dynamic_segments as jfleet_segs,
     horizon_tables as jhorizon_tables)
+from multi_purpose_mpc_tpu.ops import constraints as jcons
 from multi_purpose_mpc_tpu.ops.path import gather_waypoint_index as jgwi
 from multi_purpose_mpc_tpu.simulation import (
     _sim_step_batched_gridded as jstep_gridded, feasible_starts as jfeasible,
@@ -30,6 +32,7 @@ from multi_purpose_mpc_tpu.simulation import (
 from multi_purpose_mpc_tpu_torch import interop
 from multi_purpose_mpc_tpu_torch import simulation as tsim
 from multi_purpose_mpc_tpu_torch.config import SimConfig
+from multi_purpose_mpc_tpu_torch.ops import constraints as tcons
 from multi_purpose_mpc_tpu_torch.ops import corridor_extract as tce
 from multi_purpose_mpc_tpu_torch.ops.constraints import (SegmentCandidates,
                                                          segments_from_samples)
@@ -38,6 +41,7 @@ from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
     build_horizon_table, empty_segments, horizon_block_from_segments)
 from multi_purpose_mpc_tpu_torch.ops.corridor_cuda import corridor_select
 from tests.oracle.corridor import free_segments_oracle, select_corridor_oracle
+from tests import free_runs_cases
 from tests.test_torch_setup import jax_scenario, port_configs
 
 B4 = 4
@@ -143,6 +147,86 @@ def test_segments_bounded_memory_bitwise_vs_onehot(free_frac):
             assert a.dtype == b.dtype
             assert torch.equal(a, b)
         assert new.valid.any()
+
+
+@pytest.mark.parametrize("case,K,min_width", [
+    ("patterns", 128, free_runs_cases.TIE_WIDTH), ("patterns", 128, 0.0),
+    ("patterns", 40, free_runs_cases.TIE_WIDTH),
+    ("patterns", 256, free_runs_cases.TIE_WIDTH),
+    ("ties", 128, free_runs_cases.TIE_WIDTH), ("ties", 128, 0.04)])
+def test_free_runs_plain_route_bitwise(case, K, min_width):
+    """Kernel K8's plain route (``horizon_segments_from_table`` on CPU
+    tensors) against ``horizon_segments`` on the gathered rows and against
+    the one-hot formulation, bit for bit, on ``free_runs_cases``'
+    scanlines: random, all free, all occupied, runs touching both ends,
+    more runs than slots, out-of-bounds samples, and widths planted on
+    ``min_width`` (exactly, an ulp off, and within an ulp or two; slots
+    for every run there, so that each tie shows)."""
+    S = 32 if case == "ties" else 8
+    vals, table, idx = free_runs_cases.case(6, 30, K, seed=K,
+                                            ties=case == "ties",
+                                            min_width=min_width)
+    out = tce.horizon_segments_from_table(vals, table, idx, min_width, S)
+    h = tce.horizon_tables(table, idx)
+    ref = tce.horizon_segments(vals, h, min_width, S)
+    onehot = _segments_onehot(torch.where(h.inb, vals, torch.zeros_like(vals)),
+                              h.cx, h.cy, min_width, S)
+    for a, b, c in zip(out, ref, onehot):
+        assert a.dtype == b.dtype == c.dtype and a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(a, c)
+    kept = out.valid.sum(-1)
+    assert out.valid.shape == (6, 30, S) and bool(out.valid.any())
+    if case == "ties":  # the ties decide: some runs kept, some dropped
+        runs = int((free_runs_cases.tie_row(K) > 0.5).sum()) // 2
+        assert runs < S and 0 < int(kept.sum()) < runs * kept.numel()
+    else:  # some scanlines fill every slot, some have none
+        assert int(kept.max()) == S and int(kept.min()) == 0
+
+
+@pytest.mark.parametrize("entry", ["fleet_dynamic_segments",
+                                   "update_path_constraints"])
+def test_dynamic_segments_through_k8_route_vs_jax(sc, entry, monkeypatch):
+    """``fleet_dynamic_segments`` and ``update_path_constraints`` take the
+    free runs through ``horizon_segments_from_table`` (once a call), and
+    their segments stay bitwise the JAX package's (its gather extraction;
+    its own ``free_segments`` for the one-lane corridor, whose corridor
+    agrees within 1e-6: K2's twin selects by cross products)."""
+    calls = []
+    route = tce.horizon_segments_from_table
+
+    def spy(*args):
+        calls.append(route(*args))
+        return calls[-1]
+
+    monkeypatch.setattr(tce, "horizon_segments_from_table", spy)
+    sm, cfg = sc["model_cfg"].safety_margin, sc["mpc_cfg"]
+    if entry == "fleet_dynamic_segments":
+        occ = sc["occ_b"]
+        ref = jfleet_segs(jnp.asarray(occ), sc["jscan"], jnp.asarray(sc["idx"]),
+                          2.0 * sm, cfg.max_segments, backend="gather")
+        out = tce.fleet_dynamic_segments(torch.tensor(occ), sc["tscan"],
+                                         torch.tensor(sc["idx"]), 2.0 * sm,
+                                         cfg.max_segments)
+        assert len(calls) == 1 and all(a is b for a, b in zip(out, calls[0]))
+    else:
+        wp, N = 57, cfg.N
+        cor = tcons.update_path_constraints(sc["tgrid"], sc["tpath"], wp, N,
+                                            2.0 * sm, sm)
+        jcor = jcons.update_path_constraints(sc["grid"], sc["path"],
+                                             jnp.int32(wp), N, 2.0 * sm, sm)
+        for a, b in zip(cor, jcor):
+            np.testing.assert_allclose(a[0].numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-6)
+        idx = jgwi(sc["path"], jnp.int32(wp), jnp.arange(N))
+        ref = jax.vmap(lambda a, b: jcons.free_segments(
+            sc["grid"], a, b, 2.0 * sm, cfg.n_scan_samples,
+            cfg.max_segments))(sc["path"].border_ub[idx],
+                               sc["path"].border_lb[idx])
+        assert len(calls) == 1
+        out = calls[0].index(0)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert bool(out.valid.any())
 
 
 @pytest.mark.parametrize("grids", ["shared", "per_lane"])

@@ -5,7 +5,7 @@ the card, where the step is host-bound (PERF.md §5).
 
     python tools/api_step_ops.py
 
-The kernels' calls (K4, K2, K3) count as one op each; their plain
+The kernels' calls (K4, K8, K2, K3) count as one op each; their plain
 versions' ops are left out.
 """
 
@@ -28,7 +28,7 @@ def main():
     from multi_purpose_mpc_tpu_torch.ops import admm_cuda
     from multi_purpose_mpc_tpu_torch.ops import constraints as cons
     from multi_purpose_mpc_tpu_torch.ops.corridor_extract import (
-        horizon_segments, horizon_tables)
+        horizon_pixels, horizon_segments_from_table)
     from multi_purpose_mpc_tpu_torch.ops.horizon_table import horizon_block_from_segments
     from multi_purpose_mpc_tpu_torch.ops.ltv_qp import pack_qp
     from multi_purpose_mpc_tpu_torch.ops.path import gather_waypoint_index
@@ -71,14 +71,13 @@ def main():
 
     def corridor_inputs():
         idx = gather_waypoint_index(path, wp[:, None], torch.arange(N)[None, :])
-        h = horizon_tables(scan, idx)
-        return idx, h
+        return idx, horizon_pixels(scan, idx)
 
-    n, (idx, h) = ops(corridor_inputs)
-    rows.append(("horizon rows of the scanline table", n))
-    vals = grid.occ[h.py.long(), h.px.long()]  # K4's output
-    n, segs = ops(lambda: horizon_segments(vals, h, 2.0 * sm, S))
-    rows.append(("free runs", n))
+    n, (idx, (px, py)) = ops(corridor_inputs)
+    rows.append(("horizon pixels of the scanline table", n))
+    vals = grid.occ[py.long(), px.long()]  # K4's output
+    segs = horizon_segments_from_table(vals, scan, idx, 2.0 * sm, S)
+    rows.append(("free runs (K8)", 1))
     n, blk = ops(lambda: horizon_block_from_segments(
         table, gather_waypoint_index(path, wp, 0), segs))
     rows.append(("block write", n))
