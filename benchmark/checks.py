@@ -206,11 +206,13 @@ def lane_sample(seed: int, stream: int, B: int, n: int, device):
         B, min(B, n), replace=False)), device=device)
 
 
-def follow(w, cfg, start, log, lanes, lidar=None, low=False):
+def follow(w, cfg, start, log, lanes, lidar=None, low=False, shared=None):
     """The reference (or the control) along ``lanes`` from the program's
     pre-step poses: ``(Answer of (T, L) each, maps)``.  ``lidar``: each
     lane reads its own known map, all free at the start and rebuilt as it
-    goes by its own scans (returned, (L, H, W)); else the static map."""
+    goes by its own scans (returned, (L, H, W)); ``shared``: every lane
+    reads the one map ``shared[t]`` (T, H, W) at step t; else the static
+    map."""
     T = log.x.shape[0]
     x, y, psi, s = (t[:, lanes] for t in pre_states(start, log))
     f = Follower(w, cfg, start.wp_id[lanes].long(), low=low)
@@ -224,7 +226,8 @@ def follow(w, cfg, start, log, lanes, lidar=None, low=False):
         if maps is not None:
             F.write_hits(maps, F.scan_hits(w, cells, lidar, f.q(x[t]),
                                            f.q(y[t]), f.q(psi[t])))
-        out.append(f.step(x[t], y[t], psi[t], s[t], log.ok[t, lanes], maps))
+        out.append(f.step(x[t], y[t], psi[t], s[t], log.ok[t, lanes],
+                          maps if shared is None else shared[t]))
     return Answer(*(torch.stack(a) for a in zip(*out))), maps
 
 
@@ -256,13 +259,18 @@ def quantile(t: torch.Tensor, q: float) -> float:
     return float(torch.quantile(t, q)) if t.numel() else 0.0
 
 
-def start_numbers(w, cfg, start, log, seed, n, lidar=None, low=False) -> dict:
-    """The first step of ``n`` lanes drawn from the seed."""
+def start_numbers(w, cfg, start, log, seed, n, lidar=None, low=False,
+                  shared=None) -> dict:
+    """The first step of ``n`` lanes drawn from the seed.  ``shared``: the
+    shared maps ``(reference's, control's)`` that every lane reads (see
+    :func:`follow`)."""
     first = lane_sample(seed, 1, log.x.shape[1], n, log.x.device)
     one = type(log)(*(f[:1] for f in log))
-    ref, _ = follow(w, cfg, start, one, first, lidar)
+    ref_maps, low_maps = shared if shared is not None else (None, None)
+    ref, _ = follow(w, cfg, start, one, first, lidar, shared=ref_maps)
     if low:
-        got, _ = follow(w, cfg, start, one, first, lidar, low=True)
+        got, _ = follow(w, cfg, start, one, first, lidar, low=True,
+                        shared=low_maps)
         v, d, rp, fl = got.v[0], got.delta[0], got.r_prim[0], got.floor[0]
     else:
         v, d, rp, fl = (getattr(log, k)[0, first].to(F64)
@@ -284,13 +292,17 @@ class Maps:
     low: torch.Tensor  # the control's
 
 
-def follow_numbers(w, cfg, start, log, lanes, lidar=None, low=False):
-    """``({v_gap_p50, floor_gap}, (lanes, Maps))`` of the followed lanes."""
-    ref, maps = follow(w, cfg, start, log, lanes, lidar)
+def follow_numbers(w, cfg, start, log, lanes, lidar=None, low=False,
+                   shared=None):
+    """``({v_gap_p50, floor_gap}, (lanes, Maps))`` of the followed lanes
+    (``shared``: as :func:`start_numbers` takes it)."""
+    ref_maps, shared_low = shared if shared is not None else (None, None)
+    ref, maps = follow(w, cfg, start, log, lanes, lidar, shared=ref_maps)
     act = log.active[:, lanes]
     low_maps = None
     if low:
-        got, low_maps = follow(w, cfg, start, log, lanes, lidar, low=True)
+        got, low_maps = follow(w, cfg, start, log, lanes, lidar, low=True,
+                               shared=shared_low)
         v, fl = got.v, got.floor
     else:
         v, fl = log.v[:, lanes].to(F64), log.floor[:, lanes].to(F64)

@@ -12,4 +12,6 @@ file (:func:`benchmark.drivers.kind`).  A kind's module defines
   to the plain reference (:mod:`benchmark.checks`; ``low``: the control in
   the program's place);
 * optionally ``k7_in_range()``: ``(in-range cells, scans)`` of the traced
-  LiDAR scans."""
+  LiDAR scans;
+* for a cell on several cards, ``gather()``: called on every rank after
+  the traced calls, it brings what ``numbers`` reads to rank 0."""

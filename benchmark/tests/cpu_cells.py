@@ -12,10 +12,13 @@ SMALL = {"static_fleet": dict(batch=8, steps=4, pool=1, start_lanes=8,
                               check_lanes=3),
          "lidar_discovery": dict(batch=8, steps=4, pool=1, start_lanes=8,
                                  check_lanes=3),
-         "api_loop": dict(warm_up_cycles=1, check_cycles=4)}
+         "api_loop": dict(warm_up_cycles=1, check_cycles=4),
+         "shared_map_x4": dict(batch=8, steps=4, pool=1, start_lanes=8,
+                               check_lanes=3)}
 CELLS = {"sim_track.static_fleet": ("sim_track", "static_fleet"),
          "sim_track.lidar_discovery": ("sim_track", "lidar_discovery"),
-         "real_track.api_loop": ("real_track", "api_loop")}
+         "real_track.api_loop": ("real_track", "api_loop"),
+         "sim_track.shared_map_x4": ("sim_track", "shared_map_x4")}
 
 
 def load(cell):

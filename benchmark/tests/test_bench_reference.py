@@ -13,6 +13,7 @@ from benchmark import checks, run, scenario
 from benchmark.reference import admm as A
 from benchmark.reference import follow as F
 from benchmark.reference import qp as Q
+from benchmark.reference import shared as S
 from benchmark.reference import world as W
 
 F64 = torch.float64
@@ -128,3 +129,38 @@ def test_scan_matches_the_ports_cells_scan():
     ref, d = F.scan(w, F.boundary_cells(w.occ), cfg["lidar"], x, y, psi)
     assert torch.equal(port, ref)
     assert torch.equal(scans.ranges, d)
+
+
+def test_shared_map_observations_match_the_ports():
+    """The reference's free-space pixels, pooled masks and map update
+    against ``ops/lidar``'s on the same poses, each from its own scan."""
+    from multi_purpose_mpc_tpu_torch.ops import lidar
+
+    cfg = run.load_json(os.path.join(run.HERE, "configs", "sim_track.json"))
+    sc = scenario.configs(cfg, run.ROOT)
+    grid, path = scenario.world(sc, "cpu")
+    w = W.build_world(cfg, run.ROOT, "cpu")
+    wp = torch.arange(0, path.n_wp, 5)
+    off = torch.linspace(-0.03, 0.03, wp.shape[0])
+    x = path.x[wp] - off * torch.sin(path.psi[wp])
+    y = path.y[wp] + off * torch.cos(path.psi[wp])
+    psi = path.psi[wp] + off
+    scans = lidar.scan_fleet(grid, x, y, psi, sc.lidar,
+                             cells=lidar.occupied_cell_table(grid.occ),
+                             backend="cells")
+    fpx, fpy = lidar.free_space_pixels(grid, x, y, psi, scans)
+    _, d = F.scan(w, F.boundary_cells(w.occ), cfg["lidar"], x, y, psi)
+    rpx, rpy = S.free_pixels(w, cfg["lidar"], x, y, psi, d)
+    assert torch.equal(fpx.long(), rpx) and torch.equal(fpy.long(), rpy)
+    H, Wd = grid.occ.shape
+    hit, free = lidar.fleet_observation_masks(grid, H, Wd, x, y, psi, scans,
+                                              sc.lidar, clear_free=True,
+                                              shared=True)
+    rhit, rfree = S.pooled_masks(w, F.boundary_cells(w.occ), cfg["lidar"],
+                                 x, y, psi, chunk=16)
+    assert torch.equal(hit, rhit) and torch.equal(free, rfree)
+    assert bool(rhit.any()) and bool(rfree.any())
+    occ = torch.ones_like(grid.occ)
+    occ[::7, ::11] = 0.0
+    assert torch.equal(lidar.apply_observation_masks(occ, hit, free).double(),
+                       S.update(occ.double(), rhit, rfree))
