@@ -1972,7 +1972,8 @@ def main():
     cells = resolve_cell_table(grid, path, lidar, glob_cells, "cells")
     torch.cuda.synchronize()
     print(f"[lidar] cell tables: global {tuple(glob_cells.shape)}, per "
-          f"waypoint {tuple(cells.shape)} in {time.perf_counter() - t0:.2f} s",
+          f"waypoint {tuple(cells.rows.shape)} in "
+          f"{time.perf_counter() - t0:.2f} s",
           flush=True)
     k7_in = lidar_ops.cells_prologue(grid, fleet.x, fleet.y, fleet.psi,
                                      lidar)[1:]
@@ -1987,18 +1988,20 @@ def main():
 
     ties = tie_world(dev)
     k7_err = 0.0
-    k7_cases = [(f"feasible starts B={n}, {name} table {tuple(tb.shape)}",
+    k7_cases = [(f"feasible starts B={n}, {name} table {tuple(shape)}",
                  k7_args(n, tb))
                 for n in (1, 33, LIDAR_B, B)
-                for name, tb in (("per-waypoint", cells),
-                                 ("global", glob_cells))]
+                for name, tb, shape in (
+                    ("per-waypoint", cells, cells.rows.shape),
+                    ("global", glob_cells, glob_cells.shape))]
     k7_cases += [(f"tie poses B={ties['x'].shape[0]}, {name} table "
-                  f"{tuple(ties[key].shape)}",
+                  f"{tuple(shape)}",
                   (ties["grid"], ties[key], ties["wp_id"], ties["cx"],
                    ties["cy"], ties["ux"], ties["uy"], ties["support"],
                    lidar.range))
-                 for name, key in (("per-waypoint", "wpc"),
-                                   ("global", "cells"))]
+                 for name, key, shape in (
+                     ("per-waypoint", "wpc", ties["wpc"].rows.shape),
+                     ("global", "cells", ties["cells"].shape))]
     for label, a7 in k7_cases:
         ker = lidar_ops.cells_min_cuda(*a7)
         ref = lidar_ops.cells_min_plain(*a7)
@@ -2015,10 +2018,13 @@ def main():
     k7_rows = {}
     for n in (1, LIDAR_B, B):
         a7 = k7_args(n)
-        cell_ops, pair_ops = k7_ops(*a7)
+        # the starts lie within the reach: each lane reads its row alone
+        on_rows = (a7[0], cells.rows, *a7[2:])
+        cell_ops, pair_ops = k7_ops(*on_rows)
         k7_rows[n] = (device_ms(lambda: lidar_ops.cells_min_cuda(*a7), 50),
                       cuda_ms(lambda: lidar_ops.cells_min_plain(*a7), 3),
-                      bound(nbytes(a7[1:8], lidar_ops.cells_min_cuda(*a7)),
+                      bound(nbytes(on_rows[1:8],
+                                   lidar_ops.cells_min_cuda(*a7)),
                             cell_ops + pair_ops), cell_ops, pair_ops)
     print("[K7] " + "; ".join(
         f"B={n}: kernel {k:.4f} ms (device time), plain {p:.3f} ms, bound "

@@ -27,6 +27,13 @@
 // int32 table itself, so the kernel reads 8 bytes a cell and no float
 // table is built.
 //
+// A table pruned per waypoint holds the cells within range + slack of each
+// waypoint, so it is exact for a sensor within the slack of its lane's
+// waypoint.  With a fallback (ops/lidar.py: CellTable), a lane whose
+// sensor lies past `reach` of its waypoint sweeps the global table
+// instead (the decision in float32, each product and sum rounded, as the
+// plain version's), and its block adds one to the fallback counter.
+//
 // Design: one block per lane, a thread per beam (ceil(nb / 32) warps; past
 // 256 beams a thread keeps 2, 4 or 8 beams).  The block reads its lane's
 // table row through wp_id (no (B, K, 2) gather) in tiles of 8 cells a
@@ -55,8 +62,11 @@ constexpr float BIG = 1e9f;  // the plain version's sentinel
 template <int BPT>
 __global__ void __launch_bounds__(MAX_THREADS) scan_cells_kernel(
     const int2* __restrict__ cells, int rows, int K,
-    const int* __restrict__ wp_id, const float* __restrict__ origin,
-    const float* __restrict__ resolution, int W,
+    const int* __restrict__ wp_id, const int2* __restrict__ every, int M,
+    const float* __restrict__ waypoints, float reach2,
+    unsigned long long* __restrict__ fallbacks,
+    const float* __restrict__ origin, const float* __restrict__ resolution,
+    int W,
     const float* __restrict__ cx, const float* __restrict__ cy,
     const float* __restrict__ ux, const float* __restrict__ uy,
     const float* __restrict__ support, float range, int nb,
@@ -74,6 +84,15 @@ __global__ void __launch_bounds__(MAX_THREADS) scan_cells_kernel(
   const int2* rc = cells + (int64_t)row * K;
   const float res = *resolution, ox = origin[0], oy = origin[1];
   const float sx = cx[lane], sy = cy[lane];
+  if (every) {  // past the reach of its waypoint: the global table
+    const float wx = __fsub_rn(sx, waypoints[2 * row]);
+    const float wy = __fsub_rn(sy, waypoints[2 * row + 1]);
+    if (__fadd_rn(__fmul_rn(wx, wx), __fmul_rn(wy, wy)) > reach2) {
+      rc = every;
+      K = M;
+      if (tid == 0) atomicAdd(fallbacks, 1ull);
+    }
+  }
 
   float bux[BPT], buy[BPT], bsup[BPT], bd[BPT], bp[BPT];
 #pragma unroll
@@ -151,33 +170,41 @@ __global__ void __launch_bounds__(MAX_THREADS) scan_cells_kernel(
 
 template <int BPT>
 cudaError_t launch(int threads, int B, cudaStream_t stream, const int2* cells,
-                   int rows, int K, const int* wp_id, const float* origin,
+                   int rows, int K, const int* wp_id, const int2* every,
+                   int M, const float* waypoints, float reach2,
+                   unsigned long long* fallbacks, const float* origin,
                    const float* resolution, int W, const float* cx,
                    const float* cy, const float* ux, const float* uy,
                    const float* support, float range, int nb, float* out_d,
                    float* out_pid) {
   const size_t smem = sizeof(float4) * threads * CELLS_PER_THREAD;
   scan_cells_kernel<BPT><<<B, threads, smem, stream>>>(
-      cells, rows, K, wp_id, origin, resolution, W, cx, cy, ux, uy, support,
-      range, nb, out_d, out_pid);
+      cells, rows, K, wp_id, every, M, waypoints, reach2, fallbacks, origin,
+      resolution, W, cx, cy, ux, uy, support, range, nb, out_d, out_pid);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // cells: (rows, K, 2) int32 pixel coords (rows = 1 for a global table,
-// wp_id NULL); wp_id: (B,) int32 row of each lane; origin (2,), resolution
-// () float32 on the device; cx, cy (B,); ux, uy, support (B, nb); outputs
-// (B, nb) float32.  Returns a cudaError_t (0 on success).
+// wp_id NULL); wp_id: (B,) int32 row of each lane; every: NULL, or the
+// (M, 2) int32 global table a lane falls back to past reach2 (squared) of
+// its row's waypoint (waypoints (rows, 2) float32), counted in
+// *fallbacks (int64); origin (2,), resolution () float32 on the device;
+// cx, cy (B,); ux, uy, support (B, nb); outputs (B, nb) float32.  Returns
+// a cudaError_t (0 on success).
 extern "C" int scan_cells_launch(const int* cells, int rows, int K,
-                                 const int* wp_id, const float* origin,
+                                 const int* wp_id, const int* every, int M,
+                                 const float* waypoints, float reach2,
+                                 long long* fallbacks, const float* origin,
                                  const float* resolution, int W,
                                  const float* cx, const float* cy,
                                  const float* ux, const float* uy,
                                  const float* support, float range, int B,
                                  int nb, float* out_d, float* out_pid,
                                  void* stream) {
-  if (B < 0 || K < 0 || rows <= 0 || nb <= 0 || W <= 0)
+  if (B < 0 || K < 0 || rows <= 0 || nb <= 0 || W <= 0 ||
+      (every && (M < 0 || !wp_id || !waypoints || !fallbacks)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   int bpt = 1;
@@ -187,9 +214,11 @@ extern "C" int scan_cells_launch(const int* cells, int rows, int K,
   const int threads = (per + 31) / 32 * 32;
   const int2* c2 = reinterpret_cast<const int2*>(cells);
   cudaStream_t s = (cudaStream_t)stream;
-#define SCAN_CELLS_ARGS                                                      \
-  threads, B, s, c2, rows, K, wp_id, origin, resolution, W, cx, cy, ux, uy, \
-      support, range, nb, out_d, out_pid
+  const int2* e2 = reinterpret_cast<const int2*>(every);
+  unsigned long long* fb = reinterpret_cast<unsigned long long*>(fallbacks);
+#define SCAN_CELLS_ARGS                                                     \
+  threads, B, s, c2, rows, K, wp_id, e2, M, waypoints, reach2, fb, origin, \
+      resolution, W, cx, cy, ux, uy, support, range, nb, out_d, out_pid
   switch (bpt) {
     case 1: return (int)launch<1>(SCAN_CELLS_ARGS);
     case 2: return (int)launch<2>(SCAN_CELLS_ARGS);

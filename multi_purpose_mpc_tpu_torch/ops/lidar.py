@@ -16,7 +16,7 @@ Scans (every function takes a fleet: poses (B,), outputs (B, n_beams)):
   exact corner-span test over the 3 x 3 neighbourhood of every sample;
 * ``cells`` (:func:`scan_fleet`): the same corner-span test swept over a
   static table of occupied boundary cells (:func:`occupied_cell_table`,
-  optionally pruned per waypoint by :func:`waypoint_cell_table`).  Its
+  or pruned per waypoint as a :class:`CellTable`, exact for any pose).  Its
   sweep, :func:`cells_min`, is kernel K7 (``csrc/scan_cells.cu``) on the
   card and :func:`cells_min_plain` on the CPU: plain PyTorch chunked over
   lanes and cells so that no intermediate passes ``max_elems`` elements.
@@ -53,7 +53,7 @@ from multi_purpose_mpc_tpu_torch.config import LidarConfig
 from multi_purpose_mpc_tpu_torch.ops.grid import GridMap, lookup, m2w, w2m
 from multi_purpose_mpc_tpu_torch.ops.rays import (first_occupied, sample_line,
                                                 unit_linspace)
-from multi_purpose_mpc_tpu_torch.utils import kernels
+from multi_purpose_mpc_tpu_torch.utils import kernels, spans
 
 _F32 = torch.float32
 _BIG = 1e9
@@ -277,6 +277,42 @@ def waypoint_slack(path) -> float:
     return float(d + 2.0 * spacing)
 
 
+class CellTable(NamedTuple):
+    """The ``cells`` scan's table pruned per waypoint, exact for any pose:
+    a lane takes its waypoint's row of ``rows`` while its sensor lies
+    within ``reach`` of that waypoint (there the row holds every cell in
+    range), and falls back to the global table ``every`` past it, as a car
+    far off the track does.  :func:`waypoint_cells` builds it."""
+
+    rows: torch.Tensor  # (n_wp, K, 2) int32: waypoint_cell_table
+    every: torch.Tensor  # (M, 2) int32: occupied_cell_table
+    waypoints: torch.Tensor  # (n_wp, 2) float32: each row's waypoint (x, y)
+    reach2: float  # the squared reach [m^2], a float32 value
+
+    def fallback(self, cx, cy, wp_id) -> torch.Tensor:
+        """(B,) bool: the lanes whose sensor ``(cx, cy)`` lies past the
+        reach of waypoint ``wp_id``, in float32 with each product and sum
+        rounded, as kernel K7 decides it."""
+        w = self.waypoints[wp_id.long().clamp(0, self.rows.shape[0] - 1)]
+        dx, dy = cx - w[:, 0], cy - w[:, 1]
+        return dx * dx + dy * dy > self.reach2
+
+
+def waypoint_cells(cells, grid: GridMap, path, rng: float) -> CellTable:
+    """The :class:`CellTable` of the global table ``cells``
+    (:func:`occupied_cell_table`) for scans of range ``rng`` along
+    ``path``: rows of radius ``rng + waypoint_slack(path)``, and a reach of
+    ``waypoint_slack(path)`` less one grid cell, which covers the float32
+    roundings of the rows' and the scan's distance tests."""
+    slack = waypoint_slack(path)
+    rows = waypoint_cell_table(cells, grid, path, rng + slack)
+    reach = slack - float(_host(grid.resolution))
+    wps = torch.stack([path.x, path.y], -1).to(device=rows.device,
+                                                 dtype=_F32).contiguous()
+    return CellTable(rows, cells.to(rows.device).contiguous(), wps,
+                     float(np.float32(reach) * np.float32(reach)))
+
+
 # ---------------------------------------------------------------------------
 # Fleet scans
 # ---------------------------------------------------------------------------
@@ -288,9 +324,10 @@ def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
     """Scans for a fleet of poses (x, y, psi each (B,)).
 
     Backends: ``march`` (:func:`scan`); ``cells`` (the corner-span test
-    swept over ``cells``: a global (M, 2) table, or a per-waypoint (n_wp,
-    K, 2) table whose row ``wp_id`` (B,) each lane takes); ``auto`` —
-    ``cells`` on a CUDA grid when a table is given, else ``march``.
+    swept over ``cells``: a global (M, 2) table, or a :class:`CellTable`
+    pruned per waypoint, whose row ``wp_id`` (B,) each lane takes);
+    ``auto`` — ``cells`` on a CUDA grid when a table is given, else
+    ``march``.
 
     ``cells`` is a prologue (sensor, beam directions, support), the sweep
     :func:`cells_min` — kernel K7 on the card, :func:`cells_min_plain` on
@@ -305,8 +342,8 @@ def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
         raise ValueError(f"unknown scan backend {backend!r}")
     if cells is None:
         raise ValueError("cells backend needs occupied_cell_table(true_occ)")
-    if cells.dim() == 3 and wp_id is None:
-        raise ValueError("per-waypoint cell table needs wp_id")
+    if _per_waypoint(cells) and wp_id is None:
+        raise ValueError("a per-waypoint CellTable needs wp_id")
 
     B, nb = x.shape[0], cfg.n_beams
     H, W = grid.occ.shape
@@ -350,9 +387,10 @@ def cells_min_plain(grid: GridMap, cells: torch.Tensor,
     table cell that passes the corner-span test (``along > 0``, ``|perp| <=
     support``, ``0 < d < rng``), as ``(acc_d, acc_pid)`` (B, nb) float32:
     its distance and packed id ``py * W + px``, 1e9 for both where none
-    passes.  ``cells`` (M, 2) global or (n_wp, K, 2) per waypoint (row
-    ``wp_id`` (B,) for each lane); sensor ``cx, cy`` (B,); ``ux, uy,
-    support`` (B, nb).
+    passes.  ``cells`` (M, 2) global or a :class:`CellTable` (each lane's
+    row ``wp_id`` (B,), or the global table past the reach, counted in the
+    recorder's ``cell_table_fallbacks``); sensor ``cx, cy`` (B,); ``ux, uy, support``
+    (B, nb).
 
     Sweeps ``chunk`` cells of as many lanes as keep the (lanes, cells,
     beams) intermediates within ``max_elems`` elements at a time.
@@ -364,10 +402,7 @@ def cells_min_plain(grid: GridMap, cells: torch.Tensor,
     dev = cx.device
     B, nb = ux.shape
     W = grid.occ.shape[-1]
-    if cells.dim() == 3:  # per-waypoint pruned candidates
-        cells_b = cells[wp_id.long()]  # (B, K, 2)
-    else:
-        cells_b = cells[None]  # (1, M, 2), every lane
+    cells_b = _lane_cells(cells, wp_id, cx, cy)  # (B or 1, M, 2)
     M = cells_b.shape[1]
     C = min(chunk, M)
     Bc = max(1, min(B, max_elems // (C * nb)))
@@ -413,13 +448,46 @@ def cells_min_plain(grid: GridMap, cells: torch.Tensor,
     return acc_d, acc_pid
 
 
+def _per_waypoint(cells) -> bool:
+    """Whether ``cells`` is a :class:`CellTable`; raises on a table that is
+    neither that nor a global (M, 2) one."""
+    if isinstance(cells, CellTable):
+        return True
+    if cells.dim() != 2:
+        raise ValueError(f"a cell table is a global (M, 2) table or a "
+                         f"CellTable (waypoint_cells), got "
+                         f"{tuple(cells.shape)}")
+    return False
+
+
+def _lane_cells(cells, wp_id, cx, cy) -> torch.Tensor:
+    """The plain sweep's candidates: (1, M, 2) of a global table; of a
+    :class:`CellTable` whose lanes all lie within its reach (B, K, 2), each
+    lane's row, else every row padded with dummies to the global table's
+    length and the lanes past the reach given that table (a dummy never
+    passes the range test, so the padding changes no result)."""
+    if not _per_waypoint(cells):
+        return cells[None]
+    far = cells.fallback(cx, cy, wp_id)
+    spans.tally("cell_table_fallbacks", cx.device).add_(far.sum())
+    rows = cells.rows[wp_id.long()]
+    if not bool(far.any()):
+        return rows
+    width = max(rows.shape[1], cells.every.shape[0])
+    pad = lambda t: torch.nn.functional.pad(
+        t, (0, 0, 0, width - t.shape[-2]), value=_DUMMY)
+    return torch.where(far[:, None, None], pad(cells.every)[None], pad(rows))
+
+
 SCAN_CELLS_MAX_BEAMS = 2048  # K7's block: 256 threads x 8 beams a thread
 
 
 def _library():
     fn = kernels.load("scan_cells").scan_cells_launch
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 5
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 3)
@@ -431,7 +499,8 @@ def cells_min_cuda(grid: GridMap, cells: torch.Tensor,
                    wp_id: Optional[torch.Tensor], cx, cy, ux, uy, support,
                    rng: float):
     """Launch ``scan_cells_kernel`` (K7) on the current stream; the output
-    of :func:`cells_min_plain`, bit for bit.  ``rng`` is rounded to float32,
+    of :func:`cells_min_plain`, bit for bit, and (of a :class:`CellTable`)
+    its count of the lanes that fell back.  ``rng`` is rounded to float32,
     as torch rounds a Python scalar it compares a float32 tensor with.
     Raises on anything the kernel does not take, and on a failed launch."""
     dev = cx.device
@@ -450,14 +519,25 @@ def cells_min_cuda(grid: GridMap, cells: torch.Tensor,
             raise ValueError(f"{name}: expected contiguous float32 {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
+    table = cells if _per_waypoint(cells) else None
+    if table is not None:
+        cells = table.rows
+        for name, t, dtype, shape in (
+                ("every", table.every, torch.int32, (table.every.shape[0], 2)),
+                ("waypoints", table.waypoints, _F32, (cells.shape[0], 2))):
+            if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+                    or tuple(t.shape) != shape):
+                raise ValueError(f"CellTable.{name}: expected contiguous "
+                                 f"{dtype} {shape} on {dev}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
     if (cells.device != dev or cells.dtype != torch.int32
-            or not cells.is_contiguous() or cells.dim() not in (2, 3)
-            or cells.shape[-1] != 2):
-        raise ValueError(f"cells: expected a contiguous int32 (M, 2) or (n_wp, "
-                         f"K, 2) table on {dev}, got {cells.dtype} "
-                         f"{tuple(cells.shape)} on {cells.device}")
-    rows, K = (1, cells.shape[0]) if cells.dim() == 2 else cells.shape[:2]
-    if cells.dim() == 3:
+            or not cells.is_contiguous() or cells.shape[-1] != 2):
+        raise ValueError(f"cells: expected a contiguous int32 (M, 2) table "
+                         f"or CellTable rows (n_wp, K, 2) on {dev}, got "
+                         f"{cells.dtype} {tuple(cells.shape)} on "
+                         f"{cells.device}")
+    rows, K = (1, cells.shape[0]) if table is None else cells.shape[:2]
+    if table is not None:
         if (wp_id is None or wp_id.device != dev or wp_id.dtype != torch.int32
                 or not wp_id.is_contiguous() or tuple(wp_id.shape) != (B,)):
             raise ValueError(f"a per-waypoint table needs wp_id: contiguous "
@@ -468,9 +548,13 @@ def cells_min_cuda(grid: GridMap, cells: torch.Tensor,
                          f"beams, {tuple(cells.shape)}")
     out_d = torch.empty((B, nb), dtype=_F32, device=dev)
     out_pid = torch.empty((B, nb), dtype=_F32, device=dev)
+    fb = ((table.every.data_ptr(), table.every.shape[0],
+           table.waypoints.data_ptr(), table.reach2,
+           spans.tally("cell_table_fallbacks", dev).data_ptr())
+          if table is not None else (None, 0, None, 0.0, None))
     rc = _library()(
         cells.data_ptr(), rows, K,
-        wp_id.data_ptr() if cells.dim() == 3 else None,
+        wp_id.data_ptr() if table is not None else None, *fb,
         grid.origin.data_ptr(), grid.resolution.data_ptr(),
         grid.occ.shape[-1], cx.data_ptr(), cy.data_ptr(), ux.data_ptr(),
         uy.data_ptr(), support.data_ptr(), float(np.float32(rng)), B, nb,

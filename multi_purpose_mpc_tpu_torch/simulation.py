@@ -57,7 +57,7 @@ from multi_purpose_mpc_tpu_torch.ops.horizon_table import (
 from multi_purpose_mpc_tpu_torch.ops.lidar import (
     apply_observation_masks, fleet_observation_masks, fleet_writeback,
     hit_pixels, occupied_cell_table, pool_observation_masks, scan_fleet,
-    scatter_writeback_, waypoint_cell_table, waypoint_slack)
+    scatter_writeback_, waypoint_cells)
 from multi_purpose_mpc_tpu_torch.ops.mapping import (
     pack_rows, unpack_rows, writeback_extract, writeback_extract_packed)
 from multi_purpose_mpc_tpu_torch.ops.path import PathData, gather_waypoint_index
@@ -352,18 +352,17 @@ def resolve_cell_table(true_grid: GridMap, path: PathData, lidar: LidarConfig,
                        cells, scan_backend: str, prune: bool = True):
     """The ``cells`` scan's static table: the global boundary-cell table of
     ``true_grid`` unless ``cells`` is given, upgraded with ``prune`` to the
-    per-waypoint table whenever that pays (K < 3/4 M); exact for on-track
-    poses (radius = range + :func:`~.ops.lidar.waypoint_slack`).  None for
-    other scan backends."""
+    per-waypoint :class:`~.ops.lidar.CellTable` whenever that pays (K <
+    3/4 M); exact for every pose (a lane past its waypoint's reach sweeps
+    the global table).  None for other scan backends."""
     if scan_backend != "cells":
         return None
     if cells is None:
         cells = occupied_cell_table(true_grid.occ)
-    if prune and cells.dim() == 2:
-        wpc = waypoint_cell_table(cells, true_grid, path,
-                                  lidar.range + waypoint_slack(path))
-        if wpc.shape[1] < 0.75 * cells.shape[0]:
-            cells = wpc
+    if prune and isinstance(cells, torch.Tensor) and cells.dim() == 2:
+        table = waypoint_cells(cells, true_grid, path, lidar.range)
+        if table.rows.shape[1] < 0.75 * cells.shape[0]:
+            cells = table
     return cells
 
 
@@ -498,6 +497,8 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
             masks = fleet_observation_masks(frame, H, W, st.x, st.y, st.psi,
                                             scans, lidar,
                                             clear_free=clear_free, shared=True)
+            # the all-reduces wait for the slowest rank: a stage of its own
+            spans.stage("pool")
             occ = apply_observation_masks(
                 occ, *pool_observation_masks(*masks, group))
         elif writeback_backend == "dense":

@@ -35,7 +35,10 @@ calibration, within ``calibration_error_ns``.
   end]``.  Stage ``i`` lasted ``row[2 + i + 1] - row[2 + i]``; a control
   row and a drive row of one cycle share its request id, and the
   ``get_control`` span of that id encloses the control row.
-* ``counters``: ``graph_captures``, the CUDA graphs captured so far.
+* ``counters``: ``graph_captures``, the CUDA graphs captured so far, and
+  what the recorder's counters (:func:`.spans.counters`) gained inside the
+  traced block: ``cell_table_fallbacks``, the lane-steps whose scan fell
+  back from its waypoint's row of a pruned cell table to the global one.
 
 PyTorch returns from a CUDA call before the device has finished, so every
 time here is taken after a synchronise of the devices the result lives on.
@@ -86,14 +89,17 @@ def trace(logdir: Optional[str] = None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
+    before = spans.counters()
     prof.start()
     try:
         yield logdir
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        gained = {k: n - before.get(k, 0)
+                  for k, n in spans.counters().items()}
         spans.dump(os.path.join(logdir, "spans.json"),
-                   {"graph_captures": graphs.captures})
+                   {"graph_captures": graphs.captures, **gained})
 
 
 def _time_once(run: Callable, device: Optional[torch.device]) -> float:

@@ -37,9 +37,14 @@ relates ``%globaltimer`` to ``perf_counter_ns`` once per device (a mark
 launched between two host stamps after a synchronise; the error is half
 the tightest of several brackets).
 
+Counters: :func:`tally` is a named int64 on a device that a step adds to
+on the device, for counts that depend on the data (a captured step adds
+at every replay); :func:`counters` reads them.
+
 Readers: :func:`ring` (the ring of a label that recorded a step last) and
-its :meth:`StageRing.table`, :func:`host_records`; :func:`dump` writes
-both as JSON (``utils.profiling.trace`` writes ``spans.json``).
+its :meth:`StageRing.table`, :func:`host_records`, :func:`counters`;
+:func:`dump` writes them as JSON (``utils.profiling.trace`` writes
+``spans.json``).
 """
 
 from __future__ import annotations
@@ -85,6 +90,7 @@ _latest: dict = {}  # label -> the StageRing that recorded a step last
 _requests: dict = {}  # kind -> its last request id
 _calibrations: dict = {}  # device -> Calibration
 _sides: dict = {}  # device -> the stream captured marks run on
+_tallies: dict = {}  # (name, device) -> 0-d int64 device count
 
 
 # ---------------------------------------------------------------- device
@@ -440,6 +446,29 @@ def reset() -> None:
     _host = _HostRing(HOST_RECORDS)
     _requests.clear()
     _latest.clear()
+
+
+# -------------------------------------------------------------- counters
+
+
+def tally(name: str, device) -> torch.Tensor:
+    """The 0-d int64 counter ``name`` on ``device``, made at its first use
+    and kept for the process (a captured step that adds to it adds at every
+    replay)."""
+    key = (name, torch.device(device))
+    t = _tallies.get(key)
+    if t is None:
+        t = _tallies[key] = torch.zeros((), dtype=torch.int64, device=device)
+    return t
+
+
+def counters() -> dict:
+    """The device tallies, ``{name: count}`` summed over devices (a read
+    back from each): totals since the process started."""
+    out: dict = {}
+    for (name, _), t in sorted(_tallies.items(), key=lambda kv: kv[0][0]):
+        out[name] = out.get(name, 0) + int(t)
+    return out
 
 
 # ---------------------------------------------------------------- export

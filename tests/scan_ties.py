@@ -23,9 +23,10 @@ import torch
 
 from multi_purpose_mpc_tpu_torch.config import LidarConfig
 from multi_purpose_mpc_tpu_torch.ops.grid import make_grid_map
-from multi_purpose_mpc_tpu_torch.ops.lidar import (cells_prologue,
+from multi_purpose_mpc_tpu_torch.ops.lidar import (CellTable, cells_prologue,
                                                    occupied_cell_table,
                                                    waypoint_cell_table)
+from multi_purpose_mpc_tpu_torch.utils.tree import tree_map
 
 RES = 1.0 / 64
 ORIGIN = (-1.0, -2.0)
@@ -36,8 +37,9 @@ LIDAR = LidarConfig(FoV=360, range=1.0, resolution=4, n_ray_samples=256)
 def tie_world(device="cpu", lanes: int = 24):
     """``dict(grid, cells, wpc, wp_id, x, y, psi, cx, cy, ux, uy,
     support)`` on ``device``: the grid, its global boundary-cell table, a
-    per-pose table (one row per pose: the cells within 1.25 m of it, by
-    :func:`waypoint_cell_table`), ``lanes`` poses (pose i on row i) and
+    per-pose :class:`CellTable` (one row per pose: the cells within 1.25 m
+    of it, by :func:`waypoint_cell_table`; each pose is its row's waypoint,
+    so none falls back), ``lanes`` poses (pose i on row i) and
     the sweep's inputs for :data:`LIDAR` (:func:`cells_prologue`).  All is
     built on the CPU and then copied: on the card a division by a host
     scalar is a reciprocal multiply, which would move the middle beam off
@@ -62,13 +64,16 @@ def tie_world(device="cpu", lanes: int = 24):
     y = (sy + np.float32(0.5)) * np.float32(RES) + np.float32(ORIGIN[1])
     cells = occupied_cell_table(grid.occ, pad_multiple=256)
     out = dict(grid=grid, cells=cells,
-               wpc=waypoint_cell_table(cells, grid, SimpleNamespace(x=x, y=y),
+               wpc=CellTable(
+                   waypoint_cell_table(cells, grid, SimpleNamespace(x=x, y=y),
                                        1.25, pad_multiple=256),
+                   cells, torch.from_numpy(np.stack([x, y], -1)), 0.0),
                wp_id=torch.arange(lanes, dtype=torch.int32),
                x=torch.from_numpy(x), y=torch.from_numpy(y),
                psi=torch.full((lanes,), math.pi / 4, dtype=torch.float32))
     _, *inputs = cells_prologue(grid, out["x"], out["y"], out["psi"], LIDAR)
     out.update(zip(("cx", "cy", "ux", "uy", "support"), inputs))
-    moved = {k: v.to(device) for k, v in out.items() if k != "grid"}
+    moved = {k: tree_map(lambda t: t.to(device), v) for k, v in out.items()
+             if k != "grid"}
     moved["grid"] = make_grid_map(occ, ORIGIN, RES, device=device)
     return moved

@@ -455,6 +455,47 @@ def test_k7_kernel_breaks_ties_as_plain(cuda_device, table):
     assert torch.equal(ker[1][:, 45], (sy + 1) * W + sx + 2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("poses", ["off_track", "on_track"])
+def test_k7_cell_table_falls_back_as_plain(cuda_device, poses):
+    """cell_table_poses on the card: K7 over the pruned CellTable equals
+    the plain sweep bit for bit and the global table's sweep; it sends the
+    lanes past the reach (every off-track lane, no on-track one) to the
+    global table and counts them once a lane, as the plain sweep does.
+    Poses and inputs are made on the CPU and copied."""
+    from cell_table_poses import LIDAR, ONE_BEAM, off_track, on_track, sim_track
+    from multi_purpose_mpc_tpu_torch.simulation import resolve_cell_table
+    from multi_purpose_mpc_tpu_torch.utils import spans
+    from multi_purpose_mpc_tpu_torch.utils.tree import tree_map
+
+    grid, path = sim_track()
+    table = resolve_cell_table(grid, path, LIDAR, None, "cells")
+    if poses == "off_track":
+        lid = ONE_BEAM
+        x, y, psi, wp = off_track(grid, path, LIDAR.range
+                                  + lidar.waypoint_slack(path))
+    else:
+        lid = LIDAR
+        x, y, psi, wp = on_track(grid, path, lanes=1024)
+    pro = lidar.cells_prologue(grid, x, y, psi, lid)[1:]
+    far = int(table.fallback(pro[0], pro[1], wp).sum())
+    assert far == (len(x) if poses == "off_track" else 0)
+    on = lambda t: tree_map(lambda v: v.to(cuda_device).contiguous(), t)
+    grid, table, wp, pro = on(grid), on(table), on(wp), on(pro)
+    args = (grid, table, wp, *pro, lid.range)
+    count = lambda: spans.counters().get("cell_table_fallbacks", 0)
+    n0 = count()
+    ker = lidar.cells_min_cuda(*args)
+    torch.cuda.synchronize()
+    n1 = count()
+    ref = lidar.cells_min_plain(*args)
+    every = lidar.cells_min_cuda(grid, table.every, None, *pro, lid.range)
+    torch.cuda.synchronize()
+    assert n1 - n0 == far and count() - n1 == far
+    for k, r, e in zip(ker, ref, every):
+        assert _same_bits(k, r) and _same_bits(k, e)
+
+
 # ---------------------------------------------------------------------------
 # K8, the free runs: bitwise equal to its plain route
 # ---------------------------------------------------------------------------

@@ -84,9 +84,8 @@ def sc():
              tpose=[torch.tensor(v) for v in pose])
     s["jcells"] = jl.occupied_cell_table(grid.occ)
     s["tcells"] = tl.occupied_cell_table(s["tgrid"].occ)
-    s["slack"] = tl.waypoint_slack(s["tpath"])
-    s["twpc"] = tl.waypoint_cell_table(s["tcells"], s["tgrid"], s["tpath"],
-                                       1.0 + s["slack"])
+    s["twpc"] = tl.waypoint_cells(s["tcells"], s["tgrid"], s["tpath"],
+                                  s["tcfg"].range)
     return s
 
 

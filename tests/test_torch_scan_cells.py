@@ -62,14 +62,19 @@ def _brute(grid, cells, wp_id, cx, cy, ux, uy, support, rng):
     res = f32(grid.resolution.item())
     ox, oy = (f32(v) for v in grid.origin.numpy())
     W = grid.occ.shape[1]
-    tab = cells.numpy()
+    if isinstance(cells, tl.CellTable):  # a lane's row, or every cell
+        far = cells.fallback(cx, cy, wp_id).numpy()
+        rows, every = cells.rows.numpy(), cells.every.numpy()
+        row_of = lambda b: every if far[b] else rows[int(wp_id[b])]
+    else:
+        row_of = lambda b: cells.numpy()
     cx, cy, ux, uy, sup = (t.numpy() for t in (cx, cy, ux, uy, support))
     B, nb = ux.shape
     out_d = np.full((B, nb), 1e9, f32)
     out_p = np.full((B, nb), 1e9, f32)
     ties = 0
     for b in range(B):
-        row = tab[int(wp_id[b])] if tab.ndim == 3 else tab
+        row = row_of(b)
         px, py = row[:, 0], row[:, 1]
         gx = (px.astype(f32) + f32(0.5)) * res + ox
         gy = (py.astype(f32) + f32(0.5)) * res + oy
@@ -105,8 +110,7 @@ def test_cell_tables_ascending_dummies_last(sc, ties, world, table):
     then (-10**6, -10**6) dummies only."""
     grid, cells = _world(sc, ties, world, table)[:2]
     W = grid.occ.shape[1]
-    rows = cells.numpy().reshape(-1, *cells.shape[-2:])
-    assert rows.shape[0] == (1 if table == "global" else cells.shape[0])
+    rows = (cells.numpy()[None] if table == "global" else cells.rows.numpy())
     for row in rows:
         real = row[:, 0] > -(10 ** 5)
         n = int(real.sum())
@@ -154,7 +158,9 @@ def test_scan_fleet_cells_on_cpu_takes_plain_version(sc, backend,
     plain = tl.cells_min_plain
 
     def spy(*args, **kw):
-        calls.append(args[1].dim())
+        table = args[1]  # a CellTable's rows are per waypoint: 3-D
+        calls.append((table.rows if isinstance(table, tl.CellTable)
+                      else table).dim())
         return plain(*args, **kw)
 
     monkeypatch.setattr(tl, "cells_min_plain", spy)
