@@ -14,12 +14,16 @@
 // * stage-parallel work (assembly, the ADMM right-hand side, relaxation,
 //   box projection and dual updates, the Schur diagonal blocks, residuals)
 //   runs with thread t on stages t, t + 32, ...;
-// * the three recurrences over the stages run in stage order: the Schur
-//   factorisation on every thread of the warp at once (the same stage from
-//   broadcast shared-memory reads, thread 0 storing the inverse), the
-//   forward and backward substitutions one matrix row per thread, the rows
-//   handed round by __shfl_sync; the stage-to-stage value stays in
-//   registers;
+// * the Schur factorisation runs in stage order on every thread of the
+//   warp at once (the same stage from broadcast shared-memory reads,
+//   thread 0 storing the inverse Sinv_n and G_{n-1} = C_{n-1} Sinv_{n-1}):
+//   the block LDL' factors of the stage system;
+// * a stage solve (substitute) is the block LDL' solve: its two sequential
+//   chains carry only the 3 x-rows of a stage, in thread 0's registers,
+//   with no shuffle and no shared-memory round trip on the chain (the next
+//   stage's operands are loaded before this stage's store); the u-rows'
+//   terms and the diagonal solves z_n = Sinv_n y_n are stage-parallel
+//   passes around the chains;
 // * per-lane scalars (the adaptive-rho ratio, the polish decision, the
 //   residuals) are per-thread maxima combined by a __shfl_xor_sync
 //   butterfly, so every thread of the warp takes the same decision.
@@ -34,11 +38,13 @@
 // [stage][element] exactly as the (B, N+1, ...) tensors of the public
 // layout, so warm starts, outputs and K3's QPs are copied coalesced:
 //   AB [S][15], beq [S][3], Pd qv lw uw rho_w W Zw [S][5], Yeq [S][3],
-//   Yw V [S][5], Vx [S][3], then 16-byte aligned C [S][16] (C_n = -rho_eq
-//   [A_n|B_n], padded) and Sinv [S][28] (the 5x5 Schur inverses, padded
-//   for float4 loads).  V holds the ADMM right-hand side, then the solve
-//   output; Vx the x-rows of the forward substitution.  Odd strides keep
-//   the per-stage accesses of the 32 threads on distinct banks.
+//   Yw V [S][5], then 16-byte aligned Gx [S][8] and Gr [S][7] (the factor's
+//   G_n = C_n Sinv_n, 3x5: Gx its x-x block but G_n[2][2], for the chains'
+//   float4 loads; Gr G_n[2][2] and the u-columns, gr_at) and Sinv [S][28]
+//   (the 5x5 Schur inverses, padded for float4 loads).  V holds the ADMM
+//   right-hand side, then y and z of the solve in place, then its output
+//   w.  Odd strides keep the per-stage accesses of the 32 threads on
+//   distinct banks.
 //
 // Stage solvers.  The template parameter CR of admm_solve (and of the
 // functions it calls) picks how the stage system is factored and solved,
@@ -52,7 +58,7 @@
 //   down, the last stage, and the levels up.
 //
 // CR layout.  The lane keeps the first 61 floats a stage of the Schur
-// layout (AB .. Yw; no V, no Vx), then, per padded stage in elimination
+// layout (AB .. Yw; no V), then, per padded stage in elimination
 // order (cr_slot: the stages one level eliminates lie side by side),
 // Dinv [M][25] (the block, reduced in place, then its inverse) and X [M][5]
 // (the ADMM right-hand side, written there by the iteration, then the
@@ -102,8 +108,9 @@ constexpr int NX = 3;
 constexpr int NW = 5;
 constexpr int WARP = 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SCALARS = 69;  // floats a stage from AB to Vx (layout above)
-constexpr int C_STRIDE = 16;
+constexpr int SCALARS = 66;  // floats a stage from AB to V (layout above)
+constexpr int GX_STRIDE = 8;  // G_n[0][0..2], G_n[1][0]; G_n[1][1..2], G_n[2][0..1]
+constexpr int GR_STRIDE = 7;  // G_n[2][2], then G_n[i][3], G_n[i][4] (gr_at)
 constexpr int SINV_STRIDE = 28;
 // CR: floats a stage from AB to Yw, and the strides of Dinv and of one
 // coupling (layout above)
@@ -141,7 +148,8 @@ __host__ __device__ inline int lane_floats(int S, bool cr) {
     return (CR_SCALARS * S + (DINV_STRIDE + NW) * M
             + 2 * O_STRIDE * cr_pairs(M) + 3) & ~3;
   }
-  return ((SCALARS * S + 3) & ~3) + (C_STRIDE + SINV_STRIDE) * S;
+  return ((SCALARS * S + 3) & ~3) + GX_STRIDE * S + ((GR_STRIDE * S + 3) & ~3)
+         + SINV_STRIDE * S;
 }
 
 // Schur's lanes per block at horizon N (0: the lane does not fit).
@@ -170,12 +178,12 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One lane's shared-memory arrays and the thread's place in its warp
-// (V, Vx, C, Sinv: the Schur recursion; M, Dinv, X, OL, ORt: cyclic
+// (V, Gx, Gr, Sinv: the Schur recursion; M, Dinv, X, OL, ORt: cyclic
 // reduction).
 struct Lane {
   int N, S, t, M, P;  // P: CR's coupling pairs
-  float *AB, *beq, *Pd, *qv, *lw, *uw, *rho_w, *W, *Zw, *Yeq, *Yw, *V, *Vx,
-      *C, *Sinv, *Dinv, *X, *OL, *ORt;
+  float *AB, *beq, *Pd, *qv, *lw, *uw, *rho_w, *W, *Zw, *Yeq, *Yw, *V, *Gx,
+      *Gr, *Sinv, *Dinv, *X, *OL, *ORt;
 };
 
 // The lane of warp `w` in the block's dynamic shared memory.
@@ -200,17 +208,17 @@ __device__ __forceinline__ Lane lane_at(float* smem, int w, int N) {
   L.Yeq = p;     p += NX * S;
   L.Yw = p;      p += NW * S;
   if (CR) {
-    L.V = L.Vx = L.C = L.Sinv = nullptr;
+    L.V = L.Gx = L.Gr = L.Sinv = nullptr;
     L.Dinv = p;  p += DINV_STRIDE * L.M;
     L.X = p;     p += NW * L.M;
     L.P = cr_pairs(L.M);
     L.OL = p;    p += O_STRIDE * L.P;
     L.ORt = p;
   } else {
-    L.V = p;     p += NW * S;
-    L.Vx = p;
+    L.V = p;
     p = smem + (size_t)w * lane_floats(S, CR) + ((SCALARS * S + 3) & ~3);
-    L.C = p;     p += C_STRIDE * S;
+    L.Gx = p;    p += GX_STRIDE * S;
+    L.Gr = p;    p += (GR_STRIDE * S + 3) & ~3;
     L.Sinv = p;
     L.Dinv = L.X = L.OL = L.ORt = nullptr;
     L.P = 0;
@@ -312,22 +320,9 @@ __device__ __forceinline__ void load25(const float* p, float (&m)[NW][NW]) {
     for (int j = 0; j < NW; ++j) m[i][j] = v[i * NW + j];
 }
 
-__device__ __forceinline__ void load15(const float* p, float (&m)[NX][NW]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-  float v[C_STRIDE];
-#pragma unroll
-  for (int k = 0; k < C_STRIDE / 4; ++k) {
-    const float4 x = q[k];
-    v[4 * k] = x.x; v[4 * k + 1] = x.y; v[4 * k + 2] = x.z; v[4 * k + 3] = x.w;
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) m[i][j] = v[i * NW + j];
-}
-
 // Step sizes, couplings C_n and the diagonal blocks of one factor
-// (stage-parallel).  Schur: D_n into Sinv's slot n, C_n into C's.  CR: D_n
+// (stage-parallel).  Schur: D_n into Sinv's slot n (factor() forms C_n
+// itself).  CR: D_n
 // into Dinv's slot of stage n, C_n into level 0's pairs (coupling_of),
 // identity blocks and zero couplings on the pad stages.  polish: boost the
 // rows whose Zw sits at a finite bound.
@@ -365,10 +360,6 @@ __device__ __forceinline__ void prepare_factor(const Lane& L,
 #pragma unroll
           for (int j = 0; j < NW; ++j)
             L.OL[c.at + i * c.rs + j * c.cs] = -(rho_eq * ab[i * NW + j]);
-      } else {
-        float* c = L.C + s * C_STRIDE;
-#pragma unroll
-        for (int e = 0; e < 15; ++e) c[e] = -(rho_eq * ab[e]);
       }
 #pragma unroll
       for (int i = 0; i < NW; ++i) {
@@ -414,16 +405,27 @@ __device__ __forceinline__ void prepare_factor(const Lane& L,
   __syncwarp();
 }
 
-// Schur recursion S_0 = D_0, S_n = D_n - C_{n-1} S_{n-1}^-1 C_{n-1}'
-// (x-x block), in stage order; Sinv_{n-1} is carried in registers.
-__device__ __forceinline__ void factor(const Lane& L) {
+// Where G_n[i][j], j >= 2 of row 2 or j >= 3, lies in Gr's slot n.
+__device__ __forceinline__ int gr_at(int i, int j) {
+  return j < NX ? 0 : 1 + 2 * i + (j - NX);
+}
+
+// Schur recursion S_0 = D_0, S_n = D_n - G_{n-1} C_{n-1}' (x-x block),
+// G_{n-1} = C_{n-1} S_{n-1}^-1 with C_{n-1} = -(rho_eq AB_{n-1}), in stage
+// order; Sinv_{n-1} is carried in registers.  Thread 0 stores Sinv_n over
+// D_n and G_{n-1} into Gx and Gr: the block LDL' factors of substitute().
+__device__ __forceinline__ void factor(const Lane& L, float rho_eq) {
   float prev[NW][NW];
   for (int n = 0; n <= L.N; ++n) {
     float a[NW][NW], inv[NW][NW];
     load25(L.Sinv + n * SINV_STRIDE, a);
     if (n > 0) {
+      const float* ab = L.AB + (n - 1) * 15;
       float C[NX][NW], G[NX][NW];
-      load15(L.C + (n - 1) * C_STRIDE, C);
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+#pragma unroll
+        for (int j = 0; j < NW; ++j) C[i][j] = -(rho_eq * ab[i * NW + j]);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
 #pragma unroll
@@ -433,6 +435,17 @@ __device__ __forceinline__ void factor(const Lane& L) {
           for (int k = 1; k < NW; ++k) acc = acc + C[i][k] * prev[k][j];
           G[i][j] = acc;
         }
+      }
+      if (L.t == 0) {
+        float4* gx = reinterpret_cast<float4*>(L.Gx + (n - 1) * GX_STRIDE);
+        gx[0] = make_float4(G[0][0], G[0][1], G[0][2], G[1][0]);
+        gx[1] = make_float4(G[1][1], G[1][2], G[2][0], G[2][1]);
+        float* gr = L.Gr + (n - 1) * GR_STRIDE;
+        gr[0] = G[2][2];
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = NX; j < NW; ++j) gr[gr_at(i, j)] = G[i][j];
       }
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
@@ -462,75 +475,134 @@ __device__ __forceinline__ void factor(const Lane& L) {
   __syncwarp();
 }
 
-// M w = V in stage order.  Each stage step's matrix-vector products run
-// one row per thread (thread t < 5 computes row t; the others repeat rows
-// t % 5 and their results go unused), and __shfl_sync hands the rows to
-// every thread.  Forward: v_0 = V_0, v_n = V_n - pad(C_{n-1} Sinv_{n-1}
-// v_{n-1}), the x-rows of v_n kept in Vx; backward: w_N = Sinv_N v_N,
-// w_n = Sinv_n (v_n - C_n' w_{n+1}[x]) into V.  Thread t < 5 is the only
-// one to read or write element t of V and Vx during the backward pass.
+// What a chain reads for one stage: G_n's x-x block (a, b: Gx's slot; g22)
+// and three values of V (the chain's x-rows).
+struct ChainOperands {
+  float4 a, b;
+  float g22, v0, v1, v2;
+};
+
+__device__ __forceinline__ ChainOperands chain_load(const Lane& L, int n,
+                                                    int vs) {
+  const float4* gx = reinterpret_cast<const float4*>(L.Gx + n * GX_STRIDE);
+  const float* v = L.V + vs * NW;
+  return {gx[0], gx[1], L.Gr[n * GR_STRIDE], v[0], v[1], v[2]};
+}
+
+// L y = b, the x-rows' chain, on thread 0: y_{n+1}[x] = ((V_{n+1}[x] -
+// G_n[:, 0] y_n[0]) - G_n[:, 1] y_n[1]) - G_n[:, 2] y_n[2] into V, where
+// V_{n+1}[x] already holds b_{n+1}[x] less G_n's u-terms.
+__device__ __forceinline__ void forward_step(const Lane& L, int n,
+                                             const ChainOperands& o,
+                                             float (&y)[NX]) {
+  const float y0 = ((o.v0 - o.a.x * y[0]) - o.a.y * y[1]) - o.a.z * y[2];
+  const float y1 = ((o.v1 - o.a.w * y[0]) - o.b.x * y[1]) - o.b.y * y[2];
+  const float y2 = ((o.v2 - o.b.z * y[0]) - o.b.w * y[1]) - o.g22 * y[2];
+  float* v = L.V + (n + 1) * NW;
+  v[0] = y[0] = y0;
+  v[1] = y[1] = y1;
+  v[2] = y[2] = y2;
+}
+
+// L' w = z, the x-rows' chain, on thread 0: w_n[x] = z_n[x] - G_n[:, x]'
+// w_{n+1}[x] into V (the sum over G_n's rows from the last), from w_N =
+// z_N.
+__device__ __forceinline__ void backward_step(const Lane& L, int n,
+                                              const ChainOperands& o,
+                                              float (&w)[NX]) {
+  const float w0 = o.v0 - ((o.b.z * w[2] + o.a.w * w[1]) + o.a.x * w[0]);
+  const float w1 = o.v1 - ((o.b.w * w[2] + o.b.x * w[1]) + o.a.y * w[0]);
+  const float w2 = o.v2 - ((o.g22 * w[2] + o.b.y * w[1]) + o.a.z * w[0]);
+  float* v = L.V + n * NW;
+  v[0] = w[0] = w0;
+  v[1] = w[1] = w1;
+  v[2] = w[2] = w2;
+}
+
+// The two chains of a solve, on thread 0 alone (the other threads wait at
+// the __syncwarp that follows).  Each stage's operands are loaded a stage
+// ahead in program order, alternating between two register sets, and
+// before the store that rewrites the values they read.  The compiler still
+// sinks a conditional load below the loop's exit test, next to its use, so
+// a stage can wait out that load's latency.
+__device__ __forceinline__ void forward_chain(const Lane& L) {
+  if (L.t != 0) return;
+  const int N = L.N;
+  float y[NX] = {L.V[0], L.V[1], L.V[2]};
+  ChainOperands A = chain_load(L, 0, 1), B;
+  for (int n = 0; n < N; n += 2) {
+    if (n + 1 < N) B = chain_load(L, n + 1, n + 2);
+    forward_step(L, n, A, y);
+    if (n + 1 == N) break;
+    if (n + 2 < N) A = chain_load(L, n + 2, n + 3);
+    forward_step(L, n + 1, B, y);
+  }
+}
+
+__device__ __forceinline__ void backward_chain(const Lane& L) {
+  if (L.t != 0) return;
+  const int N = L.N;
+  float w[NX] = {L.V[N * NW], L.V[N * NW + 1], L.V[N * NW + 2]};
+  ChainOperands A = chain_load(L, N - 1, N - 1), B;
+  for (int n = N - 1; n >= 0; n -= 2) {
+    if (n > 0) B = chain_load(L, n - 1, n - 1);
+    backward_step(L, n, A, w);
+    if (n == 0) break;
+    if (n > 1) A = chain_load(L, n - 2, n - 2);
+    backward_step(L, n - 1, B, w);
+  }
+}
+
+// M w = V in place by the block LDL' factors of factor(): M = L diag(S) L'
+// with L's sub-diagonal blocks pad(G_n).  Five passes, a __syncwarp apart:
+// 1. stage-parallel: V_{n+1}[x] = (V_{n+1}[x] - G_n[:, 4] V_n[4]) - G_n[:, 3]
+//    V_n[3] (y_n[u] = b_n[u], known before the chain);
+// 2. forward_chain: y_{n+1}[x];
+// 3. stage-parallel: z_n = Sinv_n y_n;
+// 4. backward_chain: w_n[x];
+// 5. stage-parallel: w_n[u] = z_n[u] - G_n[:, u]' w_{n+1}[x].
+// Plain version: ops/ltv_qp.py _solve, the same operations in this order.
+// The stage-parallel passes read G_n's u-columns from Gr, whose odd stride
+// keeps the 32 threads' reads on distinct banks.
 __device__ __forceinline__ void substitute(const Lane& L) {
   const int N = L.N;
-  const int r = L.t % NW;  // the row this thread computes
-  const bool owner = L.t < NW;
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-  float v[NW];
-  for (int n = 0;; ++n) {
+  float* V = L.V;
+  for (int s = L.t; s < N; s += WARP) {
+    const float* g = L.Gr + s * GR_STRIDE;
+    const float u3 = V[s * NW + 3], u4 = V[s * NW + 4];
+    float* v = V + (s + 1) * NW;
 #pragma unroll
-    for (int i = 0; i < NW; ++i) v[i] = L.V[n * NW + i];
-    if (n > 0) {
-      v[0] = v[0] - g0;
-      v[1] = v[1] - g1;
-      v[2] = v[2] - g2;
+    for (int i = 0; i < NX; ++i)
+      v[i] = (v[i] - g[gr_at(i, 4)] * u4) - g[gr_at(i, 3)] * u3;
+  }
+  __syncwarp();
+  forward_chain(L);
+  __syncwarp();
+  for (int s = L.t; s <= N; s += WARP) {
+    float m[NW][NW], y[NW];
+    load25(L.Sinv + s * SINV_STRIDE, m);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) y[j] = V[s * NW + j];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      float acc = m[i][0] * y[0];
+#pragma unroll
+      for (int j = 1; j < NW; ++j) acc = acc + m[i][j] * y[j];
+      V[s * NW + i] = acc;
     }
-    if (L.t < NX) L.Vx[n * NX + L.t] = L.t == 0 ? v[0] : L.t == 1 ? v[1] : v[2];
-    if (n == N) break;
-    const float* srow = L.Sinv + n * SINV_STRIDE + r * NW;
-    float acc = srow[0] * v[0];
-#pragma unroll
-    for (int j = 1; j < NW; ++j) acc = acc + srow[j] * v[j];
-    float Sv[NW];
-#pragma unroll
-    for (int j = 0; j < NW; ++j) Sv[j] = __shfl_sync(FULL, acc, j);
-    const float* crow = L.C + n * C_STRIDE + (r < NX ? r : 0) * NW;
-    float gacc = crow[0] * Sv[0];
-#pragma unroll
-    for (int j = 1; j < NW; ++j) gacc = gacc + crow[j] * Sv[j];
-    g0 = __shfl_sync(FULL, gacc, 0);
-    g1 = __shfl_sync(FULL, gacc, 1);
-    g2 = __shfl_sync(FULL, gacc, 2);
   }
-  __syncwarp();  // the forward reads of V are done before V is rewritten
-  float w;
-  {
-    const float* srow = L.Sinv + N * SINV_STRIDE + r * NW;
-    w = srow[0] * v[0];
+  __syncwarp();
+  backward_chain(L);
+  __syncwarp();
+  for (int s = L.t; s < N; s += WARP) {
+    const float* g = L.Gr + s * GR_STRIDE;
+    const float* w = V + (s + 1) * NW;
+    const float w0 = w[0], w1 = w[1], w2 = w[2];
 #pragma unroll
-    for (int j = 1; j < NW; ++j) w = w + srow[j] * v[j];
-  }
-  if (owner) L.V[N * NW + L.t] = w;
-  float w0 = __shfl_sync(FULL, w, 0);
-  float w1 = __shfl_sync(FULL, w, 1);
-  float w2 = __shfl_sync(FULL, w, 2);
-  for (int n = N - 1; n >= 0; --n) {
-    const float* c = L.C + n * C_STRIDE;
-    float ctw = c[r] * w0;
-    ctw = ctw + c[NW + r] * w1;
-    ctw = ctw + c[2 * NW + r] * w2;
-    float vn = 0.f;
-    if (owner) vn = r < NX ? L.Vx[n * NX + r] : L.V[n * NW + r];
-    const float tr = vn - ctw;
-    float tv[NW];
-#pragma unroll
-    for (int j = 0; j < NW; ++j) tv[j] = __shfl_sync(FULL, tr, j);
-    const float* srow = L.Sinv + n * SINV_STRIDE + r * NW;
-    w = srow[0] * tv[0];
-#pragma unroll
-    for (int j = 1; j < NW; ++j) w = w + srow[j] * tv[j];
-    if (owner) L.V[n * NW + L.t] = w;
-    w0 = __shfl_sync(FULL, w, 0);
-    w1 = __shfl_sync(FULL, w, 1);
-    w2 = __shfl_sync(FULL, w, 2);
+    for (int j = NX; j < NW; ++j)
+      V[s * NW + j] = V[s * NW + j] - ((g[gr_at(2, j)] * w2
+                                        + g[gr_at(1, j)] * w1)
+                                       + g[gr_at(0, j)] * w0);
   }
   __syncwarp();
 }
@@ -979,7 +1051,7 @@ __device__ __forceinline__ void run_iters(const Lane& L,
   if constexpr (CR)
     cr_factor(L);
   else
-    factor(L);
+    factor(L, rho * p.eq_scale);
   const float rho_eq = rho * p.eq_scale;
   for (int k = 0; k < iters; ++k) {
     if constexpr (CR)

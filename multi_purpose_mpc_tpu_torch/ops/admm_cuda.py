@@ -35,9 +35,11 @@ of the block-tridiagonal Schur factor), and the plain version's
 left-to-right sums fix their order, so one lane's solve is a dependent
 chain of ~190 x 2 x 31 stage steps at N = 30.  The design gives each lane
 one warp: the stage-parallel work (assembly, right-hand side, projection,
-dual updates, residuals) runs one stage per thread, the recurrences run
-stage by stage with one matrix row per thread (the factorisation on the
-whole warp at once), and per-lane maxima are warp reductions.  The lane's state (113 floats a stage) lives in
+dual updates, residuals) runs one stage per thread, the factorisation
+stage by stage on the whole warp at once, and each substitution as a
+block LDL' solve whose two chains carry only a stage's 3 x-rows, in one
+thread's registers, between stage-parallel passes; per-lane maxima are
+warp reductions.  The lane's state (109 floats a stage) lives in
 shared memory, so the horizon is bounded by shared memory alone:
 :data:`N_MAX`.  The kernels stay bound by the chain's latency: ~1.7 ms
 for one lane at N = 30, and at B = 4096 two waves of 16 lanes per SM
@@ -84,8 +86,9 @@ _MAX_SMEM_BYTES = 232448  # dynamic shared memory of one block on Hopper
 
 def lane_smem_bytes(N: int, cr: bool = False) -> int:
     """Shared memory of one lane at horizon N (``lane_floats`` in
-    csrc/admm_core.cuh).  Schur: 69 floats a stage rounded up to 16 bytes,
-    then the recursion's couplings and inverses, 16 and 28 floats a stage.
+    csrc/admm_core.cuh).  Schur: 66 floats a stage rounded up to 16 bytes,
+    then the factor's G_n, 8 floats a stage and 7 rounded up to 16 bytes,
+    and its inverses, 28 floats a stage.
     Cyclic reduction: 61 floats a stage, 30 a padded stage (the block and
     its inverse, the right-hand side and solution) and 30 an odd stage of
     any level (its two couplings), rounded up to 16 bytes."""
@@ -94,7 +97,7 @@ def lane_smem_bytes(N: int, cr: bool = False) -> int:
         M = padded_stages(S)
         pairs = M - (M + 1).bit_length() + 1
         return 4 * ((61 * S + 30 * M + 30 * pairs + 3) & ~3)
-    return 4 * (((69 * S + 3) & ~3) + 44 * S)
+    return 4 * (((66 * S + 3) & ~3) + 8 * S + ((7 * S + 3) & ~3) + 28 * S)
 
 
 # the longest horizons whose lane fits in one block's shared memory

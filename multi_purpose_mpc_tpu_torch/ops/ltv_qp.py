@@ -251,28 +251,40 @@ def _build_blocks(sq: StageQP, rho_eq, rho_w, sigma):
 
 
 def _factor(D, C):
-    """Schur recursion S_0 = D_0, S_n = D_n - C_{n-1} S_{n-1}^-1 C_{n-1}'
-    (x-x block); returns the per-stage inverses Sinv (B, N+1, 5, 5)."""
-    Sinv = [_gj_inverse(D[:, 0])]
+    """Schur recursion S_0 = D_0, S_n = D_n - G_{n-1} C_{n-1}' (x-x block),
+    G_n = C_n S_n^-1: the block LDL' factors M = L diag(S) L' with L's
+    sub-diagonal blocks pad(G_n).  Returns the per-stage inverses Sinv
+    (B, N+1, 5, 5) and G (B, N, 3, 5)."""
+    Sinv, G = [_gj_inverse(D[:, 0])], []
     for n in range(1, D.shape[1]):
         Cn = C[:, n - 1]
-        GCt = _mm(_mm(Cn, Sinv[-1]), Cn.transpose(-1, -2))  # (B, 3, 3)
+        G.append(_mm(Cn, Sinv[-1]))
+        GCt = _mm(G[-1], Cn.transpose(-1, -2))  # (B, 3, 3)
         S = D[:, n] - torch.nn.functional.pad(GCt, (0, NU, 0, NU))
         Sinv.append(_gj_inverse(S))
-    return torch.stack(Sinv, 1)
+    return torch.stack(Sinv, 1), torch.stack(G, 1)
 
 
-def _solve(Sinv, C, b):
-    """Solve M w = b (b: (B, N+1, 5)) given the Schur factors."""
-    N = C.shape[1]
-    v = [b[:, 0]]
-    for n in range(1, N + 1):
-        Gv = _mv(C[:, n - 1], _mv(Sinv[:, n - 1], v[-1]))
-        v.append(b[:, n] - torch.nn.functional.pad(Gv, (0, NU)))
+def _solve(Sinv, G, b):
+    """Solve M w = b (b: (B, N+1, 5)) given the factors of :func:`_factor`:
+    L y = b forward, z = Sinv y, L' w = z backward.  The forward step
+    y_{n+1}[x] = b_{n+1}[x] - G_n y_n subtracts the terms of y_n one by one,
+    its u-rows (b_n's: 4, then 3) first, then its x-rows in order; the
+    backward step is w_n = z_n - G_n' w_{n+1}[x], the sum over G_n's rows
+    from the last.  The kernels keep only the x-rows on their
+    stage-to-stage chains (csrc/admm_core.cuh)."""
+    N = G.shape[1]
+    y = [b[:, 0]]
+    for n in range(N):
+        yx = b[:, n + 1, :NX]
+        for k in (4, 3, 0, 1, 2):
+            yx = yx - G[:, n, :, k] * y[-1][:, k, None]
+        y.append(torch.cat([yx, b[:, n + 1, NX:]], -1))
+    z = _mv(Sinv, torch.stack(y, 1))
     w = [None] * (N + 1)
-    w[N] = _mv(Sinv[:, N], v[N])
+    w[N] = z[:, N]
     for n in range(N - 1, -1, -1):
-        w[n] = _mv(Sinv[:, n], v[n] - _mtv(C[:, n], w[n + 1][:, :NX]))
+        w[n] = z[:, n] - _mtv(G[:, n].flip(-2), w[n + 1][:, :NX].flip(-1))
     return torch.stack(w, 1)
 
 
@@ -345,8 +357,8 @@ def admm_rounds(sq: StageQP, cfg: SolverConfig, state, rho0):
             fac = cr_factor(D, C)
             solve = lambda b: cr_solve(fac, b)
         else:
-            Sinv = _factor(D, C)
-            solve = lambda b: _solve(Sinv, C, b)
+            Sinv, G = _factor(D, C)
+            solve = lambda b: _solve(Sinv, G, b)
         for _ in range(iters):
             state = admm_iteration(sq, solve, rho_eq, rho_w, sigma, alpha,
                                    state)

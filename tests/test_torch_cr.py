@@ -104,7 +104,7 @@ def test_cr_stage_solve_matches_dense_and_schur(N):
     rel = lambda y, ref: float((np.abs(y - ref).max(axis=(1, 2))
                                 / np.abs(ref).max(axis=(1, 2))).max())
     assert rel(w.double().numpy(), x) <= 1e-4
-    ws = _solve(_factor(D, C), C, b).double().numpy()
+    ws = _solve(*_factor(D, C), b).double().numpy()
     assert rel(w.double().numpy(), ws) <= 1e-4
 
 
@@ -202,12 +202,12 @@ def test_cr_horizon_bound():
     14,416 bytes at N = 30, and N_MAX_CR = 453 is the longest horizon one
     block holds."""
     assert admm_cuda.lane_smem_bytes(30, True) == 14416
-    assert admm_cuda.lane_smem_bytes(30) == 14016
-    assert admm_cuda.N_MAX_CR == 453 and admm_cuda.N_MAX == 513
+    assert admm_cuda.lane_smem_bytes(30) == 13536
+    assert admm_cuda.N_MAX_CR == 453 and admm_cuda.N_MAX == 532
     assert admm_cuda.lane_smem_bytes(453, True) <= 232448 \
         < admm_cuda.lane_smem_bytes(454, True)
     admm_cuda._check_horizon(453, True)
-    admm_cuda._check_horizon(513, False)
+    admm_cuda._check_horizon(532, False)
     with pytest.raises(ValueError, match="cyclic reduction kernel's 1..453"):
         admm_cuda._check_horizon(454, True)
 

@@ -127,7 +127,7 @@ def test_cr_lane_layout_fits_sixteen_lanes_per_sm():
     assert admm_cuda.N_MAX_CR == 453
     assert admm_cuda.lane_smem_bytes(453, True) <= 232448 \
         < admm_cuda.lane_smem_bytes(454, True)
-    assert admm_cuda.lane_smem_bytes(30) == 14016 and admm_cuda.N_MAX == 513
+    assert admm_cuda.lane_smem_bytes(30) == 13536 and admm_cuda.N_MAX == 532
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -74,13 +74,6 @@ def test_time_optimal_beats_tracking_lap_time(modes):
 
 
 @pytest.mark.slow
-@pytest.mark.xfail(strict=True, reason=(
-    "on the CPU the fused solve's carried rho (resumed, as the JAX package's "
-    "TPU kernel resumes it; tests/test_modes.py runs the XLA solver, which "
-    "restarts from cfg.rho) climbs to 1e5-1e6 and the speed command sags: "
-    "port mean v 0.8048; on the port's 190 lap states the JAX fused kernel "
-    "(interpret mode) commands a mean 0.8120 against the port's 0.8133, "
-    "status equal on all (tools/rho_lap.py); held on the card, phase 20"))
 def test_time_optimal_mean_speed(modes):
     # time-optimal runs at (or very near) the speed cap wherever allowed
     assert modes["time_optimal"]["v_mean"] > ol.MODE_V_MIN

@@ -3,11 +3,13 @@ off, on the card.
 
     python tools/admm_parts.py [N] [--cr]
 
-Builds four variants of ``csrc/admm_fused.cu`` into a temporary directory:
-the kernel as it is, and the kernel with the stage substitutions
-(``substitute``), the Schur factorisation (``factor``) or the
-stage-parallel work of an iteration (right-hand side, projection, dual
-updates: ``iteration`` keeps only its stage solve) returning at once.
+Builds five variants of ``csrc/admm_fused.cu`` into a temporary directory:
+the kernel as it is, and the kernel with the substitutions' two sequential
+chains (``forward_chain``, ``backward_chain``), the stage-parallel passes
+of the stage solve around them (``substitute`` keeps only the chains), the
+Schur factorisation (``factor``) or the stage-parallel work of an
+iteration (right-hand side, projection, dual updates: ``iteration`` keeps
+only its stage solve) returning at once.
 With ``--cr`` the kernel runs its cyclic-reduction stage solver
 (``SolverConfig(stage_solver="cr")``) and the variants switch off its
 solve (``cr_solve``), its factorisation (``cr_factor``) and the rest of
@@ -30,19 +32,23 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CORE = REPO / "multi_purpose_mpc_tpu_torch" / "csrc"
 BATCHES = (1, 1024, 4096)
 
-# variant -> (the text that opens the function, and the statement its body
-# becomes: None returns at once), per stage solver
+# variant -> [(the text that opens a function, and the statement its body
+# becomes: None returns at once), ...], per stage solver
 OFF = {
-    "substitute off": ("void substitute(const Lane& L) {", None),
-    "factor off": ("void factor(const Lane& L) {", None),
-    "stage-parallel work off": ("void iteration(const Lane& L,",
-                                "  substitute(L);"),
+    "substitution chains off": [("void forward_chain(const Lane& L) {", None),
+                                ("void backward_chain(const Lane& L) {",
+                                 None)],
+    "solve passes off": [("void substitute(const Lane& L) {",
+                          "  forward_chain(L);\n  backward_chain(L);")],
+    "factor off": [("void factor(const Lane& L, float rho_eq) {", None)],
+    "stage-parallel work off": [("void iteration(const Lane& L,",
+                                 "  substitute(L);")],
 }
 OFF_CR = {
-    "cr_solve off": ("void cr_solve(const Lane& L) {", None),
-    "cr_factor off": ("void cr_factor(const Lane& L) {", None),
-    "stage-parallel work off": ("void cr_iteration(const Lane& L,",
-                                "  cr_solve(L);"),
+    "cr_solve off": [("void cr_solve(const Lane& L) {", None)],
+    "cr_factor off": [("void cr_factor(const Lane& L) {", None)],
+    "stage-parallel work off": [("void cr_iteration(const Lane& L,",
+                                 "  cr_solve(L);")],
 }
 
 
@@ -52,16 +58,17 @@ def make_variant(root: pathlib.Path, name: str, off: dict) -> pathlib.Path:
     if name in off:
         path = src / "admm_core.cuh"
         text = path.read_text()
-        anchor, body = off[name]
-        assert text.count(anchor) == 1, anchor
-        head, tail = text.split(anchor)
-        tail = anchor + tail
-        open_end = tail.index(") {\n") + 4  # the end of the signature
-        if body is None:
-            body = "  if (L.N > 0) return;"
-        else:  # the whole body replaced
-            tail = tail[:open_end] + tail[tail.index("\n}\n", open_end) + 1:]
-        text = head + tail[:open_end] + body + "\n" + tail[open_end:]
+        for anchor, body in off[name]:
+            assert text.count(anchor) == 1, anchor
+            head, tail = text.split(anchor)
+            tail = anchor + tail
+            open_end = tail.index(") {\n") + 4  # the end of the signature
+            if body is None:
+                body = "  if (L.N > 0) return;"
+            else:  # the whole body replaced
+                tail = (tail[:open_end]
+                        + tail[tail.index("\n}\n", open_end) + 1:])
+            text = head + tail[:open_end] + body + "\n" + tail[open_end:]
         path.write_text(text)
     return src
 
